@@ -1,0 +1,184 @@
+"""The slice as a whole: the port's verifier against the JAX package's on one
+batch of a fresh proof, its 12 single-site tamperings and a few more good
+copies; plus the chunked form, the bytes facade and a second statement family
+against the oracle.
+
+The JAX verifier costs minutes to compile for each batch shape, so this file
+calls it with exactly one shape and is the only port test that does."""
+
+import numpy as np
+import pytest
+import torch
+
+import oracle
+import prover
+from stark_verifier_tpu.config import StarkConfig as JCfg
+from stark_verifier_tpu.proofio import device as jdevice, wire as jwire
+from stark_verifier_tpu.protocol import verify as JV
+import stark_verifier_tpu_torch as svt
+from stark_verifier_tpu_torch.config import StarkConfig
+from stark_verifier_tpu_torch.proofio import device, wire
+from stark_verifier_tpu_torch.protocol import verify as V
+
+torch.set_num_threads(1)
+CONSTS = [(i ** 7) ^ 42 for i in range(64)]
+CFG = StarkConfig(log_steps=9)
+SITES = [
+    ("merkle_root",), ("l_merkle_root",),
+    ("fri", "root2"), ("fri", "col_value"), ("fri", "col_sibling"),
+    ("fri", "poly_value"), ("fri", "col_witness", 0),
+    ("fri", "poly_witness", 2),
+    ("main", "value"), ("main", "witness"),
+    ("lincomb", "value"), ("lincomb", "sibling"),
+]
+N_GOOD_TAIL = 3
+EXPECT = [True] + [False] * len(SITES) + [True] * N_GOOD_TAIL
+
+
+@pytest.fixture(scope="module")
+def blob():
+    pb, out = prover.prove_to_bytes(3, 512, CONSTS)
+    assert out == oracle.mimc(3, 512, CONSTS)
+    return pb
+
+
+@pytest.fixture(scope="module")
+def ref_batch(blob):
+    """The batch as the JAX package builds it (numpy): good, one copy per
+    tamper site with one bit flipped, three more good copies."""
+    base = jdevice.proof_tree(jwire.parse_proof(blob))
+
+    def mutate(path):
+        t = device.tree_map(lambda x: np.array(x), base)
+        node = t
+        for k in path[:-1]:
+            node = node[k]
+        flat = node[path[-1]].reshape(-1)
+        flat[len(flat) // 2] ^= 1
+        return t
+
+    trees = [base] + [mutate(p) for p in SITES] + [base] * N_GOOD_TAIL
+    return device.tree_map(np.asarray, jdevice.stack_proofs(trees))
+
+
+@pytest.fixture(scope="module")
+def port_verdicts(ref_batch):
+    fn, tables = V.make_verifier(CFG, 3, device="cpu")
+    assert isinstance(fn, torch.nn.Module)
+    assert V.make_verifier(CFG, 3, device="cpu")[0] is fn          # memoized
+    names = {n for n, _ in fn.named_buffers()}
+    assert {"g2_powers", "z_table", "z2_table", "k_table",
+            "level_moduli"} <= names
+    return fn(device.tree_from_reference(ref_batch, "cpu"))
+
+
+def test_port_verdicts_are_exact(port_verdicts):
+    assert port_verdicts.dtype == torch.bool
+    assert port_verdicts.tolist() == EXPECT
+
+
+def test_port_equals_jax_verifier(ref_batch, port_verdicts):
+    jfn, _ = JV.make_verifier(JCfg(log_steps=9), inp=3)
+    want = np.asarray(jfn(jdevice.to_device(ref_batch)))
+    assert want.tolist() == EXPECT
+    np.testing.assert_array_equal(port_verdicts.numpy(), want)
+
+
+@pytest.mark.parametrize("chunk", [4, 8, 16])
+def test_chunked_verifier_gives_the_same(ref_batch, port_verdicts, chunk):
+    fn, _ = V.make_chunked_verifier(CFG, 3, chunk=chunk, device="cpu")
+    got = fn(device.tree_from_reference(ref_batch, "cpu"))
+    assert torch.equal(got, port_verdicts)
+
+
+def test_chunked_verifier_rejects_ragged_batch(ref_batch):
+    fn, _ = V.make_chunked_verifier(CFG, 3, chunk=5, device="cpu")
+    with pytest.raises(ValueError, match="multiple"):
+        fn(device.tree_from_reference(ref_batch, "cpu"))
+
+
+def test_single_proof_without_batch_axis(blob):
+    fn, _ = V.make_verifier(CFG, 3, device="cpu")
+    tree = device.to_device(device.proof_tree(wire.parse_proof(blob)), "cpu")
+    out = fn(tree)
+    assert out.shape == () and bool(out)
+
+
+def test_a_tampered_proof_leaves_its_neighbours_alone(ref_batch):
+    """Every position of the batch in turn next to tampered ones: verdicts
+    follow the proofs under a permutation of the batch."""
+    perm = np.random.RandomState(0).permutation(len(EXPECT))
+    shuffled = device.tree_map(lambda x: x[perm], ref_batch)
+    fn, _ = V.make_verifier(CFG, 3, device="cpu")
+    got = fn(device.tree_from_reference(shuffled, "cpu"))
+    assert got.tolist() == [EXPECT[i] for i in perm]
+
+
+@pytest.mark.parametrize("case,expect", [
+    ("blob", True), ("trailing", True), ("truncated", False),
+    ("flipped", False), ("empty", False), ("wrong_family", False)])
+def test_verify_proof_bytes(blob, case, expect):
+    flipped = bytearray(blob)
+    flipped[110] ^= 1
+    data = {"blob": blob, "trailing": blob + b"trailing",
+            "truncated": blob[:1000], "flipped": bytes(flipped), "empty": b"",
+            "wrong_family": blob}[case]
+    log_steps = 11 if case == "wrong_family" else 9
+    assert svt.verify_proof_bytes(data, inp=3, log_steps=log_steps,
+                                  device="cpu") is expect
+
+
+def test_wrong_input_rejects(blob):
+    assert svt.verify_proof_bytes(blob, inp=4, log_steps=9,
+                                  device="cpu") is False
+
+
+@pytest.mark.parametrize("what", ["strict", "runtime_inp", "constants",
+                                  "unshared"])
+def test_unported_options_raise(blob, what):
+    tree = device.to_device(device.proof_tree(wire.parse_proof(blob)), "cpu")
+    fn, tables = V.make_verifier(CFG, 3, device="cpu")
+    out = fn.output_limbs
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        if what == "strict":
+            V.verify_mimc_proof(tree, 3, out, tables,
+                                StarkConfig(log_steps=9, strict=True))
+        elif what == "runtime_inp":
+            V.verify_mimc_proof(tree, out, out, tables, CFG)
+        elif what == "constants":
+            V.verify_mimc_proof(tree, 3, out, tables, CFG,
+                                constants_limbs=out[None])
+        else:
+            V.make_verifier(CFG, 3, shared_merkle=False, device="cpu")
+
+
+def test_ragged_proof_in_facade_raises(blob, monkeypatch):
+    from stark_verifier_tpu_torch.proofio import device as dmod
+    monkeypatch.setattr(dmod, "is_rectangular", lambda tree: False)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        svt.verify_proof_bytes(blob, log_steps=9, device="cpu")
+
+
+def test_second_family_against_the_oracle():
+    """log_steps=11 with 32 constants of another sequence cannot go through
+    make_verifier (its K table is the default constants'), so the family with
+    the default constants at 2^11 steps is checked: port == oracle on the good
+    proof and on a flipped byte."""
+    consts = [(i ** 7) ^ 42 for i in range(64)]
+    pb, out = prover.prove_to_bytes(3, 2048, consts)
+    proof, _ = oracle.parse_proof(pb)
+    assert oracle.verify_mimc_proof(3, 2048, consts, out, proof,
+                                    parity_guards=False)
+    assert StarkConfig(log_steps=11).fri_levels == 4
+    assert svt.verify_proof_bytes(pb, inp=3, log_steps=11, device="cpu") is True
+    bad = bytearray(pb)
+    bad[120] ^= 4
+    bad_proof, _ = oracle.parse_proof(bytes(bad))
+    try:
+        oracle_ok = oracle.verify_mimc_proof(3, 2048, consts, out, bad_proof,
+                                             parity_guards=False)
+    except (AssertionError, ValueError, IndexError):
+        oracle_ok = False
+    assert oracle_ok is False
+    assert svt.verify_proof_bytes(bytes(bad), inp=3, log_steps=11,
+                                  device="cpu") is False
