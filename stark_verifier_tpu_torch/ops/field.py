@@ -35,10 +35,9 @@ _C16 = [int(v) for v in fp.FOLD_C_LIMBS]                 # 3 limbs of C
 _NOT_C16 = [MASK - (_C16[i] if i < 3 else 0) for i in range(NLIMBS)]
 
 
-def const(x: int, device=None) -> torch.Tensor:
-    """Embed a host int as a [16] limb tensor."""
-    return torch.from_numpy(fp.int_to_limbs(x).astype(np.int32)).to(
-        device if device is not None else "cpu")
+def const(x: int, device) -> torch.Tensor:
+    """Embed a host int as a [16] limb tensor on `device`."""
+    return torch.from_numpy(fp.int_to_limbs(x).astype(np.int32)).to(device)
 
 
 # ---------------------------------------------------------------------------

@@ -50,8 +50,9 @@ def spot_checks(raw5, tab5, ks4, ic1, ic0, power: int = 3):
 
     raw5: [..., 5, 16] raw trace limbs (P, Pg1, D, B, L); tab5 [..., 5, 16]
     canonical gathers (x, x^steps, Z, Z2, K); ks4 [..., 4, 16] raw k1..k4
-    (broadcastable over positions); ic1/ic0 [..., 16] canonical boundary
-    interpolant coefficients (broadcastable); power: transition exponent
+    and ic1/ic0 [..., 16] canonical boundary interpolant coefficients, each
+    with 1 in place of the position dim (one row per proof; the plain
+    version takes anything that broadcasts); power: transition exponent
     (2 or 3).  Returns ok [..., 3] bool."""
     if raw5.device.type == "cpu":
         return spot_checks_plain(raw5, tab5, ks4, ic1, ic0, power)
@@ -66,19 +67,18 @@ def spot_checks(raw5, tab5, ks4, ic1, ic0, power: int = 3):
                             f"on {t.device}")
     if raw5.shape != lead + (5, 16) or tab5.shape != lead + (5, 16):
         raise ValueError("spot_checks: raw5 / tab5 shapes disagree")
-    # per-proof operands: one row per `group` consecutive positions when they
-    # broadcast over the last leading dim (the verifier's call), else per
-    # position
-    per_proof = lead[:-1] + (1,) if lead else ()
-    if (lead and ks4.shape == per_proof + (4, 16)
-            and ic1.shape == per_proof + (16,)
-            and ic0.shape == per_proof + (16,)):
-        group = lead[-1]
-    else:
-        group = 1
-        ks4 = ks4.expand(lead + (4, 16))
-        ic1 = ic1.expand(lead + (16,))
-        ic0 = ic0.expand(lead + (16,))
+    # k1..k4 and the interpolant coefficients are per proof: one row for the
+    # `group` consecutive positions of the last leading dim
+    if not lead:
+        raise ValueError("spot_checks: raw5 needs a position dim")
+    per_proof = lead[:-1] + (1,)
+    if (ks4.shape != per_proof + (4, 16) or ic1.shape != per_proof + (16,)
+            or ic0.shape != per_proof + (16,)):
+        raise ValueError(
+            "spot_checks: on the card ks4 / ic1 / ic0 must hold one row per "
+            f"proof, shapes {per_proof + (4, 16)} / {per_proof + (16,)}; got "
+            f"{tuple(ks4.shape)} / {tuple(ic1.shape)} / {tuple(ic0.shape)}")
+    group = lead[-1]
     raw5, tab5, ks4, ic1, ic0 = (t.contiguous()
                                  for t in (raw5, tab5, ks4, ic1, ic0))
     bits = torch.empty(lead, dtype=torch.int32, device=dev)

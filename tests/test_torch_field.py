@@ -58,7 +58,7 @@ def test_fp_module_matches():
 
 def test_const():
     for v in EDGE[:5]:
-        np.testing.assert_array_equal(_n(F.const(v)), np.asarray(JF.const(v)))
+        np.testing.assert_array_equal(_n(F.const(v, "cpu")), np.asarray(JF.const(v)))
 
 
 @pytest.mark.parametrize("word", [0, 1, 0x80000000, 0xFFFFFFFF, 0x12345678,
