@@ -3,18 +3,18 @@
 
 Run from the root of a checkout:
     python3 chip_smoke.py [--profile]
-(--profile adds a torch.profiler pass over one main-path call: the device's
-busy share, and total and per-launch device time of the kernels that take
-most of it.)
+(--profile adds a torch.profiler pass over one main-path call and one
+unshared-path call: the device's busy share, and total and per-launch device
+time of the kernels that take most of it.)
 
 It needs a CUDA device, `nvcc`, and nothing else: no network, no JAX.  Phases
 (any failure ends the run with a non-zero exit code; nothing falls back to
 the CPU):
 
   1. device   -- the card's name and power limit;
-  2. build    -- nvcc builds the four kernels from stark_verifier_tpu_torch/csrc;
+  2. build    -- nvcc builds the six kernels from stark_verifier_tpu_torch/csrc;
   3. kernels  -- each kernel against its plain PyTorch version on the card,
-                 bit-exact, at the shapes the main path gives it, with the
+                 bit-exact, at the shapes its path gives it, with the
                  wrapper's time (CUDA events around Python calls) and its
                  device time (calls replayed from a CUDA graph) beside the
                  least time the card could take;
@@ -23,13 +23,27 @@ the CPU):
   5. main path -- 1,024 proofs (12 of them tampered, one per protocol site) in
                  chunks of 512 through make_chunked_verifier on the card;
                  verdicts must be exactly right, equal the CPU path's on the
-                 first 16, and every kernel must have been launched;
-                 then verify_proof_bytes on good / trailing / truncated /
-                 flipped blobs;
-  6. times    -- proofs/s at batch 1,024 and 8,192, single-proof latency.
+                 first 16, and the shared-path kernels must have been
+                 launched; then verify_proof_bytes on good / trailing /
+                 truncated / flipped blobs;
+  6. unshared path -- the same batch with shared_merkle=False: every branch
+                 walks to the root on its own in the independent-walk kernel;
+                 verdicts equal the main path's.  Then a ragged batch (witness
+                 arrays one zero level deeper than the depths, one proof with
+                 a short depth) routed by is_rectangular, and
+                 verify_proof_bytes on a ragged blob the oracle rejects;
+  7. runtime statement -- make_general_verifier with input, round constants
+                 and output as tensors (the constants go through an iNTT whose
+                 products are the multiply kernel); verify_mimc on a list of
+                 blobs; a fresh power-2 proof through SquareStatement;
+  8. strict   -- the golden proof accepts, a changed POINTS word rejects
+                 under strict and accepts under parity, trailing bytes reject;
+  9. times    -- proofs/s at batch 1,024 (shared, unshared, runtime
+                 statement) and 8,192, single-proof latency.
 
-The last line printed is {"ok": true, "device": {...}}; the line before it
-holds one JSON record per kernel.
+Each path is driven with every launch count set to 0 just before it and read
+just after.  The last line printed is {"ok": true, "device": {...}}; the line
+before it holds one JSON record per kernel.
 """
 
 import json
@@ -57,24 +71,35 @@ import prover  # noqa: E402  (pure Python)
 import stark_verifier_tpu_torch as sv  # noqa: E402
 from stark_verifier_tpu_torch import _build, fp  # noqa: E402
 from stark_verifier_tpu_torch.config import StarkConfig, cached_tables  # noqa: E402
+from stark_verifier_tpu_torch.models.square import SquareStatement  # noqa: E402
 from stark_verifier_tpu_torch.ops import (  # noqa: E402
-    field as F, fri_cuda, merkle_cuda, spot_cuda)
+    field as F, field_cuda, fri_cuda, merkle as merkle_ops, merkle_cuda,
+    spot_cuda)
 from stark_verifier_tpu_torch.proofio import device as dev_io, wire  # noqa: E402
 from stark_verifier_tpu_torch.protocol import verify as V  # noqa: E402
 
 DEV = torch.device("cuda")
 P = fp.MODULUS
+LOG_STEPS = 13         # the default statement family, at full width
 CHUNK = 512            # proofs per chunk on the main path
 BATCH = 1024
 BIG_BATCH = 8192
+RAGGED_BATCH = 16      # proofs of the padded batch of the unshared path
+MUL_BIG = 1 << 20      # elements of the multiply's large comparison
+KERNEL_MODULES = (merkle_cuda, fri_cuda, spot_cuda, field_cuda)
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): 3.35 TB/s of device
 # memory bandwidth and 67 TFLOP/s of float32 outside the tensor cores.  The
-# sheet gives no int32 rate; an SM has 128 float32 lanes, each counted as 2
-# operations per fused multiply-add, and 64 int32 lanes, so the int32 peak is
-# 67e12 / 4 simple integer instructions per second.
+# sheet gives no int32 rate.  The float32 figure is 128 lanes an SM, each
+# counted as 2 operations per fused multiply-add: it is also the most
+# instructions of any kind an SM can issue (4 schedulers, one warp
+# instruction a clock each).  An SM has 64 int32 lanes, but the compiler may
+# send an integer add down the float pipe as a multiply-add, so only the issue
+# rate is a ceiling no kernel can pass: 67e12 / 2 integer instructions a
+# second.  (With 67e12 / 4, the 64 lanes alone, the independent walk was
+# measured at 0.99 of its "bound".)
 MEM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 67e12 / 4
+INT32_OPS_PER_S = 67e12 / 2
 
 # Integer instructions per unit of work (what the bound counts):
 #   one Blake2s compression = 80 G functions of 12 instructions (a G is 14
@@ -91,6 +116,8 @@ OPS_MUL, OPS_REDUCE, OPS_ADD = 128, 68, 16
 OPS_ROW = 7 * OPS_MUL + 6 * OPS_REDUCE + 14 * OPS_ADD
 OPS_ROW_SX = OPS_MUL + OPS_REDUCE + OPS_ADD
 OPS_SPOT = 11 * OPS_MUL + 6 * OPS_REDUCE + 5 * OPS_ADD       # kernel D
+# kernel E: one product and one reduction an element; kernel F: the
+# compressions its branches' own depths need (OPS_COMPRESS each)
 
 SITES = [
     ("merkle_root",), ("l_merkle_root",),
@@ -190,7 +217,8 @@ def rand_limbs(gen, shape):
                       dtype=torch.int64).to(torch.int32)
     edge = fp.ints_to_limbs([0, 1, P - 1, P, P + 1, 2**256 - 1])
     flat = l.view(-1, 16)
-    flat[:6] = torch.from_numpy(edge.astype(np.int32)).to(DEV)
+    if flat.shape[0] >= 6:
+        flat[:6] = torch.from_numpy(edge.astype(np.int32)).to(DEV)
     flat[6::13] = 0xFFFF             # all-ones values (>= p)
     return l
 
@@ -293,11 +321,12 @@ def check_spot(gen, cfg, b, reps):
     # itself)
     p, d, bb = (F.canon(raw5[..., i, :]) for i in (0, 2, 3))
     x, xs, z, z2, k = (tab5[..., i, :] for i in range(5))
-    rhs_t = F.mul_sum_mod([(F.sqr_mod(p), p), (z, d)], extra=[k])
+    mul = field_cuda.mul_mod_plain   # input making stays off the multiply kernel
+    rhs_t = F.mul_sum_mod([(mul(p, p), p), (z, d)], extra=[k])
     raw5[:, 0::3, 1] = rhs_t[:, 0::3]
     rhs_l = F.mul_sum_mod(
-        [(ks4[..., 0, :], p), (ks4[..., 1, :], F.mul_mod(p, xs)),
-         (ks4[..., 2, :], bb), (ks4[..., 3, :], F.mul_mod(bb, xs))], extra=[d])
+        [(ks4[..., 0, :], p), (ks4[..., 1, :], mul(p, xs)),
+         (ks4[..., 2, :], bb), (ks4[..., 3, :], mul(bb, xs))], extra=[d])
     raw5[:, 1::3, 4] = rhs_l[:, 1::3]
     rhs_b = F.mul_sum_mod([(bb, z2), (ic1, x)], extra=[ic0.expand(x.shape)])
     raw5[:, 2::3, 0] = rhs_b[:, 2::3]            # (changes P: only bit 1 there)
@@ -325,6 +354,132 @@ def check_spot(gen, cfg, b, reps):
             "pass_fractions": frac}
 
 
+def check_mul(gen, shape_a, shape_b, reps):
+    """Kernel E at one pair of operand shapes (leading shapes, broadcast):
+    raw operands, values >= p and the edge values on both sides."""
+    a, b = rand_limbs(gen, shape_a), rand_limbs(gen, shape_b)
+    if shape_b:
+        b = b.flip(0).contiguous()       # the edge values meet random ones
+        if b.shape[0] >= 6 and a.shape == b.shape:
+            b[:6] = a[:6].flip(0)        # ... and each other
+    got = field_cuda.mul_mod(a, b)
+    torch.cuda.synchronize()
+    want = field_cuda.mul_mod_plain(a, b)
+    err = max_abs_err(got, want)
+    canonical = F.canon(got)
+    if not torch.equal(canonical, got):
+        fail("the multiply kernel returned a value that is not canonical")
+    del want, canonical
+
+    def call():
+        return field_cuda.mul_mod(a, b)
+    ms, dms = time_ms(call, reps), device_ms(call)
+    plain_ms = time_ms(lambda: field_cuda.mul_mod_plain(a, b), 2)
+    items = got.numel() // 16
+    bms, by = bound(nbytes(a, b, got), items * (OPS_MUL + OPS_REDUCE))
+    return {"shape": f"{list(shape_a) + [16]} x {list(shape_b) + [16]}",
+            "max_abs_err": err, "ms": ms, "device_ms": dms,
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by}
+
+
+def check_branches(gen, b, n, vw, depth, reps, max_depth=None, mixed=False):
+    """Kernel F on one group of the unshared path: b x n branches of `depth`
+    witness levels each (mixed: 1..max_depth by lane), witness arrays
+    max_depth deep (one more than depth = a padded level, never hashed)."""
+    max_depth = max_depth or depth
+    val, sib = rand_words(gen, (b, n, vw)), rand_words(gen, (b, n, vw))
+    wit = rand_words(gen, (b, n, max_depth, 8))
+    if mixed:
+        d64 = torch.randint(1, max_depth + 1, (b, n), generator=gen,
+                            device=DEV, dtype=torch.int64)
+    else:
+        d64 = torch.full((b, n), depth, device=DEV, dtype=torch.int64)
+    idx = torch.randint(0, 1 << 31, (b, n), generator=gen, device=DEV,
+                        dtype=torch.int64) % (1 << (d64 + 1))
+    ld4 = 1 << (d64 - 1)
+    ti = ((1 << (d64 + 2)) + idx // ld4 + 4 * (idx % ld4)).to(torch.int32)
+    d32 = d64.to(torch.int32)
+    args = (val, sib, wit, ti, d32)
+    got = merkle_cuda.walk_branches(*args)
+    torch.cuda.synchronize()
+    want = merkle_cuda.walk_branches_plain(*args)
+    err = max_abs_err(got, want)
+    if not mixed and max_depth == depth:
+        # at a uniform depth the independent walk is the static one
+        err = max(err, max_abs_err(got, merkle_cuda.walk_leaf_levels_plain(
+            val, sib, wit, ti, depth)))
+
+    def call():
+        return merkle_cuda.walk_branches(*args)
+    ms, dms = time_ms(call, reps), device_ms(call)
+    plain_ms = time_ms(lambda: merkle_cuda.walk_branches_plain(*args), 2)
+    # what this run's depths need: the leaf's compressions and one per level
+    levels = int(d64.sum().item())
+    compressions = b * n * (3 if vw == 24 else 1) + levels
+    moved = nbytes(val, sib, ti, d32, got) + levels * 32
+    bms, by = bound(moved, compressions * OPS_COMPRESS)
+    what = (f"depths 1..{max_depth} by lane" if mixed else
+            f"depth={depth}" + (f" in {max_depth} rows" if max_depth != depth
+                                else ""))
+    return {"shape": f"B={b} n={n} vw={vw} {what}", "max_abs_err": err,
+            "ms": ms, "device_ms": dms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": by, "compressions": compressions}
+
+
+def check_value_classes(gen):
+    """ops/merkle.verify_branches with a value size per branch on the card:
+    one launch of kernel F per size class (rows of 10 words, so the 32-byte
+    class is a slice the kernel cannot read in place and the others take the
+    word-by-word leaf hash), against the same call on the CPU."""
+    b, n, max_depth, classes = 64, 96, 6, (32, 40, 12)
+    val, sib = rand_words(gen, (b, n, 10)), rand_words(gen, (b, n, 10))
+    wit = rand_words(gen, (b, n, max_depth, 8))
+    depth = torch.randint(1, max_depth + 1, (b, n), generator=gen, device=DEV,
+                          dtype=torch.int64).to(torch.int32)
+    idx = torch.randint(0, 4, (b, n), generator=gen, device=DEV,
+                        dtype=torch.int64).to(torch.int32)
+    pick = torch.randint(0, 3, (b, n), generator=gen, device=DEV)
+    vsizes = torch.tensor(classes, device=DEV, dtype=torch.int32)[pick]
+    args = (idx, val, sib, wit, depth)
+    before = merkle_cuda.launches["walk_branches"]
+    # roots: each branch's own digest under its class, spoiled in one lane of 3
+    roots = None
+    for c in classes:
+        ok_c, _ = merkle_ops.verify_branches(
+            torch.zeros(8, dtype=torch.int32, device=DEV), *args,
+            vsizes=torch.full_like(vsizes, c), vsize_classes=(c,))
+        if bool(ok_c.any()):
+            fail("a random branch verified against the zero root")
+    ld4 = 1 << (depth.to(torch.int64) - 1)
+    i64 = idx.to(torch.int64)
+    ti = ((1 << (depth.to(torch.int64) + 2)) + i64 // ld4
+          + 4 * (i64 % ld4)).to(torch.int32)
+    for c in classes:
+        h = merkle_cuda.walk_branches(val[..., :c // 4], sib[..., :c // 4],
+                                      wit, ti, depth)
+        sel = (vsizes == c)[..., None]
+        roots = h if roots is None else torch.where(sel, h, roots)
+    roots[:, 0::3, 0] ^= 1
+    got, _ = merkle_ops.verify_branches(roots, *args, vsizes=vsizes,
+                                        vsize_classes=classes)
+    torch.cuda.synchronize()
+    launched = merkle_cuda.launches["walk_branches"] - before
+    want, _ = merkle_ops.verify_branches(
+        roots.cpu(), *(t.cpu() for t in args), vsizes=vsizes.cpu(),
+        vsize_classes=classes)
+    expect = torch.ones((b, n), dtype=torch.bool)
+    expect[:, 0::3] = False
+    if not (torch.equal(got.cpu(), want) and torch.equal(want, expect)):
+        fail("verify_branches with value classes: card and CPU verdicts "
+             "differ, or are not the expected ones")
+    if launched != 9:
+        fail(f"verify_branches with value classes launched kernel F "
+             f"{launched} times, expected 9 (3 + 3 + 3)")
+    log(f"verify_branches with value sizes {classes} per branch: card "
+        f"verdicts equal the CPU's and the expected ones; one launch of "
+        f"kernel F a class")
+
+
 def kernel_phase(cfg, tables):
     gen = torch.Generator(device=DEV)
     gen.manual_seed(20240613)
@@ -343,11 +498,38 @@ def kernel_phase(cfg, tables):
         b_cases.append(check_chain(gen, b, cfg.fri_queries, d, d - 4, 20))
     c_case = check_rows(gen, tables, cfg, b, 20)
     d_case = check_spot(gen, cfg, b, 20)
+    # kernel E at the runtime-statement path's shapes (a boundary product of
+    # one chunk, an iNTT stage of the 64 constants, its final scaling) and at
+    # a size whose bound reads real work
+    nc = cfg.num_constants
+    e_cases = [check_mul(gen, (b,), (), 20),
+               check_mul(gen, (nc // 2,), (nc // 2,), 20),
+               check_mul(gen, (nc,), (), 20),
+               check_mul(gen, (MUL_BIG,), (MUL_BIG,), 10)]
+    # kernel F on every group of the unshared path (the poly groups are
+    # 4 x queries independent branches there), then mixed depths and a
+    # padded level
+    f_cases = [check_branches(gen, b, 2 * cfg.spot_checks, 24, dm, 10),
+               check_branches(gen, b, cfg.spot_checks, 8, dm, 10)]
+    for l in range(cfg.fri_levels):
+        f_cases.append(check_branches(gen, b, cfg.fri_queries, 8,
+                                      dm - 2 - 2 * l, 10))
+    for l in range(cfg.fri_levels):
+        f_cases.append(check_branches(gen, b, 4 * cfg.fri_queries, 8,
+                                      dm - 2 * l, 10))
+    f_cases.append(check_branches(gen, b, 2 * cfg.spot_checks, 8, dm, 10,
+                                  mixed=True))
+    f_cases.append(check_branches(gen, b, 2 * cfg.spot_checks, 24, dm, 10,
+                                  max_depth=dm + 1))
+    check_value_classes(gen)
+    per_proof = sum(c["compressions"] for c in f_cases[:-2]) // b
+    log(f"unshared walk: {per_proof} compressions a proof over "
+        f"{len(f_cases) - 2} groups")
 
     def record(name, source, replaces, cases):
         main = cases[0]
         rec = {"name": name, "route": "cuda", "source": source,
-               "replaces": replaces, "launches": 0,
+               "replaces": replaces, "launches": 0, "launches_on": None,
                "max_abs_err": max(c["max_abs_err"] for c in cases),
                "ms": main["ms"], "device_ms": main["device_ms"],
                "plain_ms": main["plain_ms"],
@@ -368,6 +550,10 @@ def kernel_phase(cfg, tables):
                tpu + "fri_pallas.py:92", [c_case]),
         record("spot_checks", src + "spot_checks.cu",
                tpu + "spot_pallas.py:56", [d_case]),
+        record("mul_mod", src + "field_mul.cu",
+               tpu + "field_pallas.py:206", e_cases),
+        record("walk_branches", src + "merkle_walk.cu",
+               tpu + "merkle_pallas.py:117", f_cases),
     ]
 
 
@@ -428,14 +614,14 @@ def timed_calls(fn, tree, n):
     return out
 
 
-def profile_main_path(fn, tree):
-    """One main-path call under torch.profiler: device time by kernel."""
+def profile_call(label, call):
+    """One call under torch.profiler: device time by kernel."""
     from torch.profiler import ProfilerActivity, profile
-    fn(tree)
+    call()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn(tree)
+        call()
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     rows = [(e.key, getattr(e, "device_time_total", 0.0) or 0.0, e.count)
@@ -446,80 +632,110 @@ def profile_main_path(fn, tree):
     if total_us <= 0:
         log("profile: torch.profiler recorded no device time on this machine")
         return
-    log(f"profile: one call of batch {tree['merkle_root'].shape[0]} under the "
+    log(f"profile [{label}]: one call under the "
         f"profiler: wall {wall * 1e3:.1f} ms, device busy {total_us / 1e3:.1f} "
         f"ms ({100 * total_us / (wall * 1e6):.1f}% of wall), "
         f"{sum(r[2] for r in rows)} device kernels")
     ours = [r for r in rows if "stark_" in r[0]]
-    log(f"  profile: the port's own kernels: "
+    log(f"  profile [{label}]: the port's own kernels: "
         f"{sum(r[1] for r in ours) / 1e3:.3f} ms in "
         f"{sum(r[2] for r in ours)} launches; PyTorch's: "
         f"{(total_us - sum(r[1] for r in ours)) / 1e3:.3f} ms in "
         f"{sum(r[2] for r in rows) - sum(r[2] for r in ours)} launches")
     for key, us, count in ours + sorted(rows, key=lambda r: -r[1])[:10]:
-        log(f"  profile: {us / 1e3:9.3f} ms  {count:7d} x  "
+        log(f"  profile [{label}]: {us / 1e3:9.3f} ms  {count:7d} x  "
             f"{us / 1e3 / count:8.4f} ms per launch  {key[:90]}")
 
 
-def main():
-    t_start = time.perf_counter()
-    smi = nvidia_smi_line()
-    kind = torch.cuda.get_device_name(0)
-    log(f"device: {smi}")
-    log(f"python {sys.version.split()[0]} torch {torch.__version__} "
-        f"cuda {torch.version.cuda}")
-
-    _build.load()
-    log(f"build: {_build.build_seconds():.1f} s "
-        f"({len(_build.sources())} sources, nvcc sm_90a)")
-    for line in _build.build_log().splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            log("  ptxas: " + line.strip())
-
-    cfg = StarkConfig()
-    t0 = time.perf_counter()
-    tables = cached_tables(cfg)
-    log(f"tables: {time.perf_counter() - t0:.1f} s (host)")
-
-    kernels = kernel_phase(cfg, tables)
-    for k in kernels:
-        for c in k["cases"]:
-            log(f"kernel {k['name']} [{c['shape']}]: max_abs_err "
-                f"{c['max_abs_err']}, wrapper {c['ms']:.4f} ms, device "
-                f"{c['device_ms']:.4f} ms, plain "
-                f"{c['plain_ms']:.2f} ms, bound {c['bound_ms']:.4f} ms "
-                f"({c['bound_by']})")
-        if not k["match"]:
-            fail(f"kernel {k['name']} disagrees with its plain version")
-
-    t0 = time.perf_counter()
-    blob = golden_proof(cfg)
-    log(f"golden proof: {len(blob)} bytes, oracle accepts "
-        f"({time.perf_counter() - t0:.1f} s)")
-    tree_np = dev_io.proof_tree(wire.parse_and_validate(blob, cfg))
-
-    # ---- main path: 1,024 proofs in chunks of 512 on the card ------------
-    fn, _ = V.make_chunked_verifier(cfg, 3, chunk=CHUNK, device=DEV)
-    tree = device_batch(tree_np, BATCH, tamper=True)
-    for mod in (merkle_cuda, fri_cuda, spot_cuda):
+def counted(call):
+    """Run `call` with every kernel's launch count set to 0 just before and
+    read just after: (result, counts)."""
+    for mod in KERNEL_MODULES:
         for name in mod.launches:
             mod.launches[name] = 0
-    verdicts = fn(tree)
+    out = call()
     torch.cuda.synchronize()
-    counts = {**merkle_cuda.launches, **fri_cuda.launches,
-              **spot_cuda.launches}
-    verdicts = verdicts.cpu()
+    counts = {}
+    for mod in KERNEL_MODULES:
+        counts.update(mod.launches)
+    return out, counts
+
+
+def require_launches(path, counts, launched, idle=()):
+    for name in launched:
+        if counts[name] <= 0:
+            fail(f"kernel {name} was not launched on the {path}")
+    for name in idle:
+        if counts[name] != 0:
+            fail(f"kernel {name} was launched {counts[name]} times on the "
+                 f"{path}, which must not reach it")
+
+
+def expect_verdicts(what, got, want):
+    got = got.cpu()
+    if got.dtype != torch.bool or got.shape != want.shape:
+        fail(f"{what}: verdicts {got.dtype} {tuple(got.shape)}")
+    if not torch.equal(got, want):
+        bad = (got != want).nonzero().flatten().tolist()
+        fail(f"{what}: wrong verdicts at proofs {bad[:20]}")
+    return got
+
+
+def limbs_on_card(x):
+    return dev_io.to_tensor(fp.ints_to_limbs(x) if isinstance(x, list)
+                            else fp.int_to_limbs(x), DEV)
+
+
+def oracle_verdict(blob, cfg, inp, consts, out, power=3):
+    """The pure-Python oracle's verdict on a blob (an assert of the
+    reference is a reject)."""
+    try:
+        proof, _ = oracle.parse_proof(blob)
+        return bool(oracle.verify_mimc_proof(
+            inp, cfg.num_steps, consts, out, proof,
+            parity_guards=cfg.log_steps == 13, power=power))
+    except (AssertionError, ValueError, IndexError):
+        return False
+
+
+def pad_one_level(tree_np):
+    """A copy of a single-proof tree whose witness arrays all hold one more
+    (zero) level than the depths say: ragged by is_rectangular, honest."""
+    def pad(w):
+        return np.concatenate([w, np.zeros_like(w[..., :1, :])], axis=-2)
+    t = dev_io.tree_map(np.array, tree_np)
+    t["main"]["witness"] = pad(t["main"]["witness"])
+    t["lincomb"]["witness"] = pad(t["lincomb"]["witness"])
+    for key in ("col_witness", "poly_witness"):
+        t["fri"][key] = [pad(w) for w in t["fri"][key]]
+    return t
+
+
+def ragged_blob(blob):
+    """The blob with the last witness of its last branch (the lincomb
+    group's) cut off: that branch then carries one witness fewer than its
+    neighbours."""
+    depth = LOG_STEPS + 2
+    at = len(blob) - 32 * depth - 4
+    if int.from_bytes(blob[at:at + 4], "little") != 32 * depth:
+        fail("ragged_blob: the last branch is not where the layout puts it")
+    return (blob[:at] + (32 * (depth - 1)).to_bytes(4, "little")
+            + blob[at + 4:-32])
+
+
+def main_path(cfg, blob, tree_np, kernels):
+    """Phase 5.  Returns (verifier, batch on the card, exact verdicts)."""
+    fn, _ = V.make_chunked_verifier(cfg, 3, chunk=CHUNK, device=DEV)
+    tree = device_batch(tree_np, BATCH, tamper=True)
+    verdicts, counts = counted(lambda: fn(tree))
     want = torch.ones(BATCH, dtype=torch.bool)
     want[1:1 + len(SITES)] = False
-    if verdicts.dtype != torch.bool or verdicts.shape != (BATCH,):
-        fail(f"verdicts: {verdicts.dtype} {tuple(verdicts.shape)}")
-    if not torch.equal(verdicts, want):
-        bad = (verdicts != want).nonzero().flatten().tolist()
-        fail(f"wrong verdicts at proofs {bad[:20]}")
+    verdicts = expect_verdicts("main path", verdicts, want)
+    shared = ("walk_leaf_levels", "chain_levels", "eval4_rows", "spot_checks")
+    require_launches("main path", counts, shared, idle=("walk_branches",))
     for k in kernels:
-        k["launches"] = counts[k["name"]]
-        if k["launches"] <= 0:
-            fail(f"kernel {k['name']} was not launched on the main path")
+        if k["name"] in shared:
+            k["launches"], k["launches_on"] = counts[k["name"]], "main path"
     log(f"main path: batch {BATCH} in chunks of {CHUNK}: verdicts exact "
         f"(12 tampered reject, {BATCH - 12} accept); launches {counts}")
 
@@ -538,18 +754,225 @@ def main():
               "truncated": (blob[:1000], False),
               "flipped@110": (bytes(flipped), False)}
     for name, (data, expect) in facade.items():
-        got = sv.verify_proof_bytes(data, device=DEV)
+        got = sv.verify_proof_bytes(data, log_steps=LOG_STEPS, device=DEV)
         if got is not expect:
             fail(f"verify_proof_bytes({name}) = {got}, expected {expect}")
     log(f"verify_proof_bytes: {', '.join(facade)} as expected")
+    return fn, tree, want
+
+
+def unshared_path(cfg, blob, tree_np, tree, want, kernels, consts, out):
+    """Phase 6.  Returns the unshared chunked verifier."""
+    fn_u, _ = V.make_chunked_verifier(cfg, 3, chunk=CHUNK,
+                                      shared_merkle=False, device=DEV)
+    verdicts, counts = counted(lambda: fn_u(tree))
+    expect_verdicts("unshared path", verdicts, want)
+    require_launches("unshared path", counts,
+                     ("walk_branches", "eval4_rows", "spot_checks"),
+                     idle=("walk_leaf_levels", "chain_levels"))
+    for k in kernels:
+        if k["name"] == "walk_branches":
+            k["launches"], k["launches_on"] = (counts["walk_branches"],
+                                               "unshared path")
+    log(f"unshared path: batch {BATCH} in chunks of {CHUNK}: verdicts exact "
+        f"and equal to the shared path's; launches {counts}")
+
+    # a padded batch: every proof honest, proof 5 with one depth one short
+    padded = pad_one_level(tree_np)
+    short = dev_io.tree_map(np.array, padded)
+    short["main"]["depth"][3] -= 1
+    trees = [padded] * RAGGED_BATCH
+    trees[5] = short
+    host_batch = dev_io.stack_proofs(trees)
+    if dev_io.is_rectangular(host_batch) or not dev_io.is_rectangular(tree_np):
+        fail("is_rectangular does not tell the padded batch from the proof")
+    ragged = dev_io.to_device(host_batch, DEV)
+    fn_r, _ = V.make_verifier(
+        cfg, 3, shared_merkle=dev_io.is_rectangular(host_batch), device=DEV)
+    want_r = torch.ones(RAGGED_BATCH, dtype=torch.bool)
+    want_r[5] = False
+    verdicts, counts = counted(lambda: fn_r(ragged))
+    expect_verdicts("padded batch", verdicts, want_r)
+    require_launches("padded batch", counts, ("walk_branches",),
+                     idle=("walk_leaf_levels", "chain_levels"))
+    # sent to the shared walk all the same, its depth guard rejects them all
+    fn_s, _ = V.make_verifier(cfg, 3, device=DEV)
+    expect_verdicts("padded batch on the shared walk", fn_s(ragged),
+                    torch.zeros(RAGGED_BATCH, dtype=torch.bool))
+    log(f"padded batch of {RAGGED_BATCH}: routed to the unshared walk by "
+        "is_rectangular, the short-depth proof rejects and the others "
+        "accept; on the shared walk every proof rejects")
+
+    rb = ragged_blob(blob)
+    rtree = dev_io.proof_tree(wire.parse_and_validate(rb, cfg))
+    if dev_io.is_rectangular(rtree):
+        fail("the ragged blob parsed as rectangular")
+    expect = oracle_verdict(rb, cfg, 3, consts, out)
+    got, counts = counted(lambda: sv.verify_proof_bytes(rb, log_steps=LOG_STEPS, device=DEV))
+    if got is not expect or expect is not False:
+        fail(f"verify_proof_bytes(ragged blob) = {got}, oracle {expect}")
+    require_launches("ragged blob", counts, ("walk_branches",),
+                     idle=("walk_leaf_levels", "chain_levels"))
+    log("verify_proof_bytes: ragged blob rejects, as the oracle does")
+    return fn_u
+
+
+def runtime_statement_path(cfg, blob, tree, want, kernels, consts, out):
+    """Phase 7.  Returns a call of the general verifier on a batch."""
+    gfn, _ = V.make_general_verifier(cfg, device=DEV)
+    inp_l, out_l = limbs_on_card(3), limbs_on_card(out)
+    consts_l = limbs_on_card(consts)
+    verdicts, counts = counted(lambda: gfn(tree, inp_l, consts_l, out_l))
+    expect_verdicts("runtime-statement path", verdicts, want)
+    require_launches("runtime-statement path", counts,
+                     ("mul_mod", "walk_leaf_levels", "chain_levels",
+                      "eval4_rows", "spot_checks"))
+    for k in kernels:
+        if k["name"] == "mul_mod":
+            k["launches"], k["launches_on"] = (counts["mul_mod"],
+                                               "runtime-statement path")
+    log(f"runtime-statement path: batch {BATCH}, input, constants and output "
+        f"as tensors: verdicts equal the static path's; launches {counts}")
+    none = torch.zeros(BATCH, dtype=torch.bool)
+    expect_verdicts("wrong output", gfn(tree, inp_l, consts_l,
+                                        limbs_on_card((out + 1) % P)), none)
+    changed = list(consts)
+    changed[7] ^= 1
+    expect_verdicts("changed constant",
+                    gfn(tree, inp_l, limbs_on_card(changed), out_l), none)
+    expect_verdicts("wrong input", gfn(tree, limbs_on_card(4), consts_l,
+                                       out_l), none)
+    log("runtime-statement path: a wrong output, a changed constant and a "
+        "wrong input each reject every proof")
+
+    flipped = bytearray(blob)
+    flipped[110] ^= 1
+    got = sv.verify_mimc(3, cfg.num_steps, consts, out,
+                         [blob, bytes(flipped), blob[:500], blob], device=DEV)
+    if got.tolist() != [True, False, False, True]:
+        fail(f"verify_mimc(good, flipped, truncated, good) = {got.tolist()}")
+    if sv.verify_mimc(3, cfg.num_steps, consts, out, blob, device=DEV) is not True:
+        fail("verify_mimc on one blob did not accept")
+    log("verify_mimc: good, flipped, truncated, good as expected")
+
+    # the second statement family: x <- x^2 + k, a fresh full-width proof
+    t0 = time.perf_counter()
+    cfg2 = StarkConfig(log_steps=cfg.log_steps, power=2)
+    blob2, out2 = prover.prove_to_bytes(5, cfg2.num_steps, consts, power=2)
+    flipped2 = bytearray(blob2)
+    flipped2[len(blob2) // 2] ^= 1
+    if not oracle_verdict(blob2, cfg2, 5, consts, out2, power=2):
+        fail("the oracle rejects the power-2 proof")
+    fam = SquareStatement(cfg2)
+    if fp.limbs_to_int(fam.compute_output(5, device=DEV).cpu().numpy()
+                       .astype(np.uint32)) != out2:
+        fail("SquareStatement.compute_output disagrees with the prover")
+    sfn, _ = fam.make_verifier(inp=5, device=DEV)
+    sgfn, _ = fam.make_general_verifier(device=DEV)
+    trees = [dev_io.proof_tree(wire.parse_and_validate(b, cfg2))
+             for b in (blob2, bytes(flipped2))]
+    pair = dev_io.to_device(dev_io.stack_proofs(trees), DEV)
+    want2 = torch.tensor([True, False])
+    verdicts, counts = counted(lambda: sfn(pair))
+    expect_verdicts("SquareStatement", verdicts, want2)
+    require_launches("SquareStatement call", counts, ("spot_checks",))
+    expect_verdicts("SquareStatement, runtime statement",
+                    sgfn(pair, limbs_on_card(5), consts_l,
+                         limbs_on_card(out2)), want2)
+    # the cubic family must not accept a power-2 proof
+    expect_verdicts("power-2 proof under the cubic verifier",
+                    gfn(pair, limbs_on_card(5), consts_l, limbs_on_card(out2)),
+                    torch.tensor([False, False]))
+    log(f"SquareStatement: a fresh power-2 proof accepts, a flipped byte "
+        f"rejects, the cubic verifier rejects both "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return lambda t: gfn(t, inp_l, consts_l, out_l)
+
+
+def strict_phase(cfg, blob, tree_np):
+    """Phase 8."""
+    scfg = StarkConfig(log_steps=cfg.log_steps, strict=True)
+    strict_fn, _ = V.make_verifier(scfg, 3, device=DEV)
+    parity_fn, _ = V.make_verifier(cfg, 3, device=DEV)
+    changed = dev_io.tree_map(np.array, tree_np)
+    changed["points"][5, 0] ^= 1
+    pair = dev_io.to_device(dev_io.stack_proofs([tree_np, changed]), DEV)
+    expect_verdicts("strict", strict_fn(pair), torch.tensor([True, False]))
+    expect_verdicts("parity", parity_fn(pair), torch.tensor([True, True]))
+    for name, data, expect in (("blob", blob, True),
+                               ("trailing", blob + b"trailing", False)):
+        got = sv.verify_proof_bytes(data, log_steps=LOG_STEPS, strict=True,
+                                    device=DEV)
+        if got is not expect:
+            fail(f"verify_proof_bytes({name}, strict) = {got}, "
+                 f"expected {expect}")
+    log("strict: the golden proof accepts; a changed POINTS word rejects "
+        "under strict and accepts under parity; trailing bytes reject")
+
+
+def main():
+    t_start = time.perf_counter()
+    smi = nvidia_smi_line()
+    kind = torch.cuda.get_device_name(0)
+    log(f"device: {smi}")
+    log(f"python {sys.version.split()[0]} torch {torch.__version__} "
+        f"cuda {torch.version.cuda}")
+
+    _build.load()
+    log(f"build: {_build.build_seconds():.1f} s "
+        f"({len(_build.sources())} sources, nvcc sm_90a)")
+    for line in _build.build_log().splitlines():
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
+            log("  ptxas: " + line.strip())
+
+    cfg = StarkConfig(log_steps=LOG_STEPS)
+    consts = [(i ** 7) ^ 42 for i in range(cfg.num_constants)]
+    t0 = time.perf_counter()
+    tables = cached_tables(cfg)
+    log(f"tables: {time.perf_counter() - t0:.1f} s (host)")
+
+    kernels = kernel_phase(cfg, tables)
+    for k in kernels:
+        for c in k["cases"]:
+            log(f"kernel {k['name']} [{c['shape']}]: max_abs_err "
+                f"{c['max_abs_err']}, wrapper {c['ms']:.4f} ms, device "
+                f"{c['device_ms']:.4f} ms, plain "
+                f"{c['plain_ms']:.2f} ms, bound {c['bound_ms']:.4f} ms "
+                f"({c['bound_by']})")
+        if not k["match"]:
+            fail(f"kernel {k['name']} disagrees with its plain version")
+
+    t0 = time.perf_counter()
+    blob = golden_proof(cfg)
+    out = oracle.mimc(3, cfg.num_steps, consts)
+    log(f"golden proof: {len(blob)} bytes, oracle accepts "
+        f"({time.perf_counter() - t0:.1f} s)")
+    tree_np = dev_io.proof_tree(wire.parse_and_validate(blob, cfg))
+
+    fn, tree, want = main_path(cfg, blob, tree_np, kernels)
+    fn_u = unshared_path(cfg, blob, tree_np, tree, want, kernels, consts, out)
+    general = runtime_statement_path(cfg, blob, tree, want, kernels, consts,
+                                     out)
+    strict_phase(cfg, blob, tree_np)
+    for k in kernels:
+        if k["launches"] <= 0:
+            fail(f"kernel {k['name']} was launched on none of the paths")
+    del tree
 
     # ---- times -----------------------------------------------------------
     times = {"card": smi, "chunk": CHUNK}
     good = device_batch(tree_np, BATCH, tamper=False)
-    ts = timed_calls(fn, good, 5)
-    times["batch_1024_s_median"] = statistics.median(ts)
-    times["batch_1024_proofs_per_s"] = BATCH / statistics.median(ts)
-    del tree
+    # shared, unshared, unshared, shared: two versions within one call
+    ts_s = timed_calls(fn, good, 3)
+    ts_u = timed_calls(fn_u, good, 3)
+    ts_u += timed_calls(fn_u, good, 2)
+    ts_s += timed_calls(fn, good, 2)
+    times["batch_1024_s_median"] = statistics.median(ts_s)
+    times["batch_1024_proofs_per_s"] = BATCH / statistics.median(ts_s)
+    times["unshared_batch_1024_s_median"] = statistics.median(ts_u)
+    times["unshared_batch_1024_proofs_per_s"] = BATCH / statistics.median(ts_u)
+    ts_g = timed_calls(general, good, 5)
+    times["general_batch_1024_one_call_s_median"] = statistics.median(ts_g)
     if time.perf_counter() - t_start < 600:
         torch.cuda.reset_peak_memory_stats()
         big = device_batch(tree_np, BIG_BATCH, tamper=False)
@@ -577,7 +1000,8 @@ def main():
     log("times: " + json.dumps(times))
     if "--profile" in sys.argv:
         # last: the profiler slows every later launch of the process
-        profile_main_path(fn, good)
+        profile_call(f"main path, batch {BATCH}", lambda: fn(good))
+        profile_call(f"unshared path, batch {BATCH}", lambda: fn_u(good))
 
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -35,6 +35,8 @@ SIGNATURES = {
     "stark_chain_levels": [_p, _p, _ll, _p, _p, _i, _ll, _p],
     "stark_eval4_rows": [_p, _p, _p, _p, _u32p, _u32p, _ll, _p, _ll, _p],
     "stark_spot_checks": [_p, _p, _p, _p, _p, _ll, _i, _p, _ll, _p],
+    "stark_mul_mod": [_p, _ll, _p, _ll, _p, _ll, _p],
+    "stark_walk_branches": [_p, _p, _ll, _i, _p, _ll, _p, _p, _i, _p, _ll, _p],
 }
 
 _state = {"lib": None, "seconds": None, "log": ""}

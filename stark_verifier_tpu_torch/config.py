@@ -32,8 +32,9 @@ class StarkConfig:
     spot_checks: int = 80          # reference: src/main.rs:148
     fri_queries: int = 40          # reference: src/main.rs:56
     strict: bool = False           # False = bit-exact parity with the
-                                   # reference's soundness gaps; True is not
-                                   # ported yet (the verifier raises)
+                                   # reference's soundness gaps; True also
+                                   # binds and checks the POINTS element and
+                                   # rejects trailing bytes
     power: int = 3                 # transition x <- x^power + k_i: 3 is the
                                    # reference's MiMC family (utils.rs:12)
 
@@ -67,6 +68,13 @@ class StarkConfig:
             n //= 4
             lv += 1
         return lv
+
+    @property
+    def fri_final_maxdeg_plus_1(self) -> int:
+        """max_deg_plus_1 after all FRI folds (the reference threads this but
+        never checks it -- src/main.rs:31,89; the strict-mode direct check
+        makes it load-bearing)."""
+        return (self.num_steps * 2) >> (2 * self.fri_levels)
 
     @property
     def fri_final_domain(self) -> int:
@@ -140,6 +148,44 @@ class StatementTables:
              for j in range(cfg.precision)])
         self.z2_table = fp.ints_to_limbs_fast(
             [(g2_int[j] - 1) * denoms[j] % m for j in range(cfg.precision)])
+
+        # Strict-mode direct low-degree check of the final FRI (POINTS) layer
+        # (the TODO the reference leaves open, src/main.rs:94): upstream
+        # mimc_stark interpolates the first max_deg_plus_1 positions NOT
+        # divisible by extension_factor and re-evaluates the remaining ones.
+        # The interpolation nodes are powers of the final-domain root (host
+        # constants), so the whole check collapses to one precomputed
+        # evaluation matrix: data[pts[k+D]] ?= sum_i M[k, i] * data[pts[i]].
+        nd = cfg.fri_final_domain
+        deg = cfg.fri_final_maxdeg_plus_1
+        rou_last = pow(self.G2, 4 ** cfg.fri_levels, m)
+        self.points_pts = np.array(
+            [x for x in range(nd) if x % cfg.extension_factor], dtype=np.int64)
+        pts = self.points_pts
+        if len(pts) <= deg:
+            raise ValueError("no held-out positions for the direct check")
+        powl = [pow(rou_last, int(x), m) for x in range(nd)]
+        nodes = [powl[int(x)] for x in pts[:deg]]
+        # Lagrange basis at each held-out target: numerator over all nodes
+        # divided by (t - n_i) and by the denominator prod_{k != i}(n_i - n_k)
+        dens = [1] * deg
+        for i in range(deg):
+            for k in range(deg):
+                if k != i:
+                    dens[i] = dens[i] * (nodes[i] - nodes[k]) % m
+        targets = [powl[int(x)] for x in pts[deg:]]
+        diffs = [(t - n) % m for t in targets for n in nodes]
+        inv_all = _batch_inv_host([d % m for d in dens] + diffs, m)
+        inv_dens, inv_diffs = inv_all[:deg], inv_all[deg:]
+        mat = []
+        for j, t in enumerate(targets):
+            nfull = 1
+            for n in nodes:
+                nfull = nfull * (t - n) % m
+            mat.append([nfull * inv_diffs[j * deg + i] % m * inv_dens[i] % m
+                        for i in range(deg)])
+        self.points_eval_matrix = np.stack(
+            [fp.ints_to_limbs_fast(row) for row in mat])   # [nd-nd/8-deg, deg, 16]
 
     def _powers_int(self, base: int, n: int) -> list:
         m = self.cfg.modulus
@@ -217,29 +263,36 @@ def cached_tables(cfg: StarkConfig) -> StatementTables:
 
 # the array-valued and scalar fields tables_from_reference() expects
 _TABLE_ARRAYS = ("g2_powers", "z_table", "z2_table", "k_table",
-                 "quartic_ginv", "inv4", "level_moduli_np")
-_TABLE_SCALARS = ("last_step_position", "k_period")
+                 "quartic_ginv", "inv4", "level_moduli_np",
+                 "points_eval_matrix", "points_pts")
+_TABLE_SCALARS = ("last_step_position", "k_period", "minipoly_root")
 
 
 def tables_from_reference(arrays: dict, cfg: StarkConfig) -> StatementTables:
     """Statement tables computed elsewhere -> a StatementTables for the port.
 
-    arrays maps each name in _TABLE_ARRAYS to a numpy array and each name in
-    _TABLE_SCALARS to a plain int (the JAX package's StatementTables has
+    arrays maps each name in _TABLE_ARRAYS to a numpy array (uint32 limbs or
+    words; points_pts int64 positions) and each name in _TABLE_SCALARS to a
+    plain int (the JAX package's StatementTables has
     fields of the same names and layouts).  Nothing is recomputed; shapes are
     checked against cfg."""
     t = object.__new__(StatementTables)
     t.cfg = cfg
     for name in _TABLE_ARRAYS:
-        setattr(t, name, np.ascontiguousarray(arrays[name], dtype=np.uint32))
+        dtype = np.int64 if name == "points_pts" else np.uint32
+        setattr(t, name, np.ascontiguousarray(arrays[name], dtype=dtype))
     for name in _TABLE_SCALARS:
         setattr(t, name, int(arrays[name]))
+    deg = cfg.fri_final_maxdeg_plus_1
+    npts = cfg.fri_final_domain - cfg.fri_final_domain // cfg.extension_factor
     want = {"g2_powers": (cfg.precision, fp.NLIMBS),
             "z_table": (cfg.precision, fp.NLIMBS),
             "z2_table": (cfg.precision, fp.NLIMBS),
             "k_table": (t.k_period, fp.NLIMBS),
             "quartic_ginv": (fp.NLIMBS,), "inv4": (fp.NLIMBS,),
-            "level_moduli_np": (cfg.fri_levels,)}
+            "level_moduli_np": (cfg.fri_levels,),
+            "points_pts": (npts,),
+            "points_eval_matrix": (npts - deg, deg, fp.NLIMBS)}
     for name, shape in want.items():
         if getattr(t, name).shape != shape:
             raise ValueError(

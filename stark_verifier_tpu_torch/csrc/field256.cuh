@@ -1,4 +1,5 @@
-// 256-bit prime-field core for the FRI row and spot-check kernels.
+// 256-bit prime-field core for the FRI row, spot-check and element-wise
+// multiply kernels.
 // p = 2^256 - C with C = 351 * 2^32 - 1, so 2^256 === C (mod p).
 //
 // Replaces the TPU package's in-kernel field core (ops/field_pallas.py:

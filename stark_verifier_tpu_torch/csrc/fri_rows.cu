@@ -16,12 +16,12 @@
 // per (proof, level) ahead of its kernel; here one more multiply per thread
 // is cheaper than a separate pass of small launches.
 //
-// Bound on an H100: integer operations, narrowly.  A row group moves about
-// 290 bytes (128 of rows, two 64-byte gathers, 32 out, a shared 64-byte
-// operand) and does eight 256-bit multiplies with their reductions, about
-// 1,700 integer instructions: near the card's ratio of int32 rate to memory
-// rate (5 instructions per byte), so the 64-byte limb rows (16 bits of value
-// per 32-bit word) cost almost as much as the arithmetic.
+// Bound on an H100: bytes, narrowly.  A row group moves about 290 bytes (128
+// of rows, two 64-byte gathers, 32 out, a shared 64-byte operand) and does
+// eight 256-bit multiplies with their reductions, about 1,700 integer
+// instructions: 6 per byte, under the card's ratio of 10 between the
+// instructions it can issue and the bytes it can move, so the 64-byte limb
+// rows (16 bits of value per 32-bit word) cost more than the arithmetic.
 #include "field256.cuh"
 
 struct stark_row_consts {

@@ -18,10 +18,10 @@
 // A position reads 640 bytes of its own (ten values as 16-bit limbs in 32-bit
 // words, 64 bytes each) plus 384 shared per proof, and does eleven 256-bit
 // multiplies and six reductions, about 1,900 integer instructions: 3 per
-// byte, under the card's ratio of 5 between its int32 rate and its memory
-// rate.  Packing the operands to 8 words a value would halve the traffic and
-// turn the bound to operations; the layout is kept equal to the TPU
-// package's public one for now so that the two compare array for array.
+// byte, under the card's ratio of 10 between the instructions it can issue
+// and the bytes it can move.  Packing the operands to 8 words a value would
+// halve the traffic; the layout is kept equal to the TPU package's public
+// one for now so that the two compare array for array.
 #include "field256.cuh"
 
 template <int POWER>

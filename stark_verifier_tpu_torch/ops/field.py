@@ -17,8 +17,14 @@ Raw (possibly >= p) values are compared bit-for-bit where the reference
 compares unreduced integers.
 
 This module is the arithmetic of the plain versions of the CUDA kernels
-(ops/fri_cuda.py, ops/spot_cuda.py) and of the small per-proof glue of the
-verifier; the kernels carry their own 8 x 32-bit core (csrc/field256.cuh).
+(ops/fri_cuda.py, ops/spot_cuda.py, ops/field_cuda.py) and of the small
+per-proof glue of the verifier; the kernels carry their own 8 x 32-bit core
+(csrc/field256.cuh).  mul_mod (with sqr_mod and mul_mod_lazy, which call it)
+is the one function here with a kernel of its own: it dispatches to
+ops/field_cuda.mul_mod, which launches the kernel for a CUDA tensor and runs
+the plain version for a CPU tensor.  The plain versions of the other kernels
+call field_cuda.mul_mod_plain directly, so that none of them is built on a
+kernel.  mul_sum_mod has no kernel and is plain torch on either device.
 """
 
 from __future__ import annotations
@@ -207,8 +213,11 @@ def _reduce_cols(cols: list, canonical: bool = True) -> torch.Tensor:
 
 
 def mul_mod(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """(a * b) mod p, canonical; inputs may be any values < 2^256."""
-    return _reduce_cols(list(_mul_acc(a, b).unbind(-1)))
+    """(a * b) mod p, canonical; inputs may be any values < 2^256.  The
+    element-wise multiply kernel for CUDA tensors, its plain version for CPU
+    tensors (ops/field_cuda.py)."""
+    from . import field_cuda          # field_cuda imports this module
+    return field_cuda.mul_mod(a, b)
 
 
 def sqr_mod(a: torch.Tensor) -> torch.Tensor:
@@ -246,3 +255,21 @@ def mul_sum_mod(pairs, extra=()) -> torch.Tensor:
         t64 = _cols(t)
         cols = [c + t64[i] if i < NLIMBS else c for i, c in enumerate(cols)]
     return _reduce_cols(cols)
+
+
+# ---------------------------------------------------------------------------
+# Polynomial helpers
+# ---------------------------------------------------------------------------
+
+def eval_poly(coeffs: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Evaluate sum_i coeffs[i] * x^i mod p (Horner over the coefficients).
+
+    coeffs: [n, 16] (shared); x: [..., 16] canonical.  Same residue as the
+    reference's power-accumulation loop (src/utils.rs:126-136 eval_poly_at);
+    each step is acc * x + c through one reduction (mul_sum_mod).
+    """
+    rev = canon(coeffs.flip(0))
+    acc = rev[0].expand(x.shape)
+    for c in rev[1:]:
+        acc = mul_sum_mod([(acc, x)], extra=[c.expand(x.shape)])
+    return acc

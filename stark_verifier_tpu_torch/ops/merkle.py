@@ -1,4 +1,5 @@
-"""Batched Merkle multiproof verification: the shared-path walk.
+"""Batched Merkle multiproof verification: the independent per-branch walk
+(verify_branches) and the shared-path walk (verify_groups_shared).
 
 Counterpart of the reference verifier's sequential branch walker
 (src/merkle_tree.rs:25-44,101-172): all branches of a group verify in
@@ -46,6 +47,11 @@ RECTANGULAR group (every branch at the group's full static depth); the depth
 guard makes a misrouted ragged group reject, never misverify.  Slot tails of
 all groups are stacked per tree level into one compression call.
 
+verify_branches() is that independent walk itself: every branch to the root
+with its own witness depth (ragged groups, and the cross-check of the
+dedup).  It does the index arithmetic and the root compare; the walk in
+between is ops/merkle_cuda.walk_branches.
+
 Words are int32 bit patterns; tree indices and slots are int64 (all < 2^31).
 """
 
@@ -67,6 +73,81 @@ def _flog2(n: int) -> int:
 
 def _eq8(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a == b).all(dim=-1)
+
+
+# verify_branches() walks depths 1 .. MAX_BRANCH_DEPTH; outside that range
+# the start index 2^(depth+2) + permuted leaves 32 bits (or, at depth 0, the
+# shuffle divides by zero), and the branch rejects
+MAX_BRANCH_DEPTH = 29
+
+
+def _u32(t: torch.Tensor) -> torch.Tensor:
+    """Values of uint32 bit patterns (int32 storage) as int64; wider integer
+    tensors pass through."""
+    if t.dtype == torch.int32:
+        return t.to(torch.int64) & 0xFFFFFFFF
+    return t.to(torch.int64)
+
+
+def verify_branches(root_words, indices, value_words, sibling_words,
+                    witness_words, depth, vsizes=None, vsize_classes=None):
+    """Verify a group of Merkle branches against a root, each branch
+    independently and with its own witness depth.
+
+    root_words:    [..., 8] words (broadcast over the branch axis) -- the
+                   expected root, or [..., n, 8] for per-branch roots.
+    indices:       [..., n] leaf indices (pre-permutation).
+    value_words:   [..., n, vw] (vw = 8 for 32-byte leaves, 24 for the
+                   96-byte main-trace leaves; ragged groups zero-padded).
+    sibling_words: [..., n, vw].
+    witness_words: [..., n, max_depth, 8] (zero-padded past `depth`).
+    depth:         actual witness count -- python int, or a tensor
+                   broadcastable against the branch axis; a batched
+                   group-level depth [...] broadcasts over the branches (the
+                   reference walks per-branch depth, merkle_tree.rs:119-163).
+                   A depth above max_depth walks max_depth levels.  A depth
+                   of 0 or above MAX_BRANCH_DEPTH rejects its branch.
+    vsizes:        optional [..., n] per-branch value BYTES for ragged value
+                   sizes (deserializer.rs:104-119); requires vsize_classes,
+                   the static tuple of distinct sizes.  Each class is walked
+                   in its own launch and selected per branch; a size in no
+                   class takes the first class's.
+
+    Returns (ok [..., n] bool, value_words passthrough) -- mirroring
+    MultiProof::verify returning the leaf values (merkle_tree.rs:25-44).
+    """
+    dev = indices.device
+    d = _u32(torch.as_tensor(depth, device=dev))
+    if d.dim() and d.dim() < indices.dim():
+        d = d[..., None]
+    d = d.expand(indices.shape)
+    valid = (d >= 1) & (d <= MAX_BRANCH_DEPTH)
+    ds = d.clamp(1, MAX_BRANCH_DEPTH)
+
+    # uint32 arithmetic, as the reference's: int64 masked to 32 bits
+    ind = _u32(indices)
+    ld4 = 1 << (ds - 1)                          # 2^(w+1) / 4
+    idx = ((ind // ld4) + 4 * (ind % ld4)) & 0xFFFFFFFF
+    tree_index = (((1 << (ds + 2)) + idx) & 0xFFFFFFFF).to(torch.int32)
+    depth32 = ds.to(torch.int32).contiguous()
+
+    value_words = value_words.contiguous()
+    sibling_words = sibling_words.contiguous()
+    if vsizes is None:
+        res = merkle_cuda.walk_branches(value_words, sibling_words,
+                                        witness_words, tree_index, depth32)
+    else:
+        res = None
+        for cls in vsize_classes:                # static byte sizes
+            h = merkle_cuda.walk_branches(
+                value_words[..., :cls // 4], sibling_words[..., :cls // 4],
+                witness_words, tree_index, depth32)
+            sel = (_u32(vsizes) == cls)[..., None]
+            res = h if res is None else torch.where(sel, h, res)
+
+    if root_words.dim() < res.dim():
+        root_words = root_words[..., None, :]
+    return _eq8(res, root_words) & valid, value_words
 
 
 def _dense_agree_minmax(vals: torch.Tensor, o: torch.Tensor, width: int):
@@ -244,3 +325,26 @@ def verify_groups_shared(groups: list) -> list:
     return [st["ok"] & st["valid"][..., 0]
             & _eq8(st["state"][..., 0, :], st["root"])
             for st in sts]
+
+
+def merkle_root_permuted(leaves: torch.Tensor) -> torch.Tensor:
+    """Root of the full tree the prover builds over a committed value list.
+
+    leaves: [..., n, 8] word leaves (n a power of two, at least 4).  The
+    prover lays leaves out in the permute-4 shuffled order that
+    ProofBranch::verify walks back (src/merkle_tree.rs:112-116): query index
+    x lives at tree position (x / (n/4)) + 4*(x mod (n/4)).  Parents are
+    Blake2s(left || right) all the way up.
+
+    Used by strict mode to bind the FRI POINTS element to the last committed
+    root -- the check the reference parses for but never performs
+    (deserializer.rs:47-59, main.rs:94).
+    """
+    n = leaves.shape[-2]
+    ld4 = n // 4
+    x = torch.arange(n, device=leaves.device)
+    pos = (x // ld4) + 4 * (x % ld4)
+    nodes = leaves[..., torch.argsort(pos), :]   # tree position -> query index
+    while nodes.shape[-2] > 1:
+        nodes = blake2s.hash_pair(nodes[..., 0::2, :], nodes[..., 1::2, :])
+    return nodes[..., 0, :]

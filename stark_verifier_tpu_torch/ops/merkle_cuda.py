@@ -1,10 +1,14 @@
-"""Merkle branch walks on the card: walk_leaf_levels (kernel A) and
-chain_levels (kernel B), each with its plain PyTorch version.
+"""Merkle branch walks on the card: walk_leaf_levels (kernel A),
+chain_levels (kernel B) and walk_branches (kernel F), each with its plain
+PyTorch version.
 
-Counterpart of the JAX package's ops/merkle_pallas.py.  The kernels live in
-csrc/merkle_walk.cu: one thread per branch, reading the branch's rows straight
-from the proof tree's layout.  A wrapper launches its kernel for a CUDA
-tensor (or raises) and takes the plain version only for a CPU tensor.
+Counterpart of the JAX package's ops/merkle_pallas.py.  A and B are the
+full-width lower levels of the shared-path walk (ops/merkle._shared_bottom);
+F is the whole independent walk of a branch with its own depth, which
+ops/merkle.verify_branches runs for unshared and ragged groups.  The kernels
+live in csrc/merkle_walk.cu: one thread per branch, reading the branch's rows
+straight from the proof tree's layout.  A wrapper launches its kernel for a
+CUDA tensor (or raises) and takes the plain version only for a CPU tensor.
 """
 
 from __future__ import annotations
@@ -15,7 +19,7 @@ from .. import _build
 from . import blake2s
 
 # launches per kernel since the last reset (chip_smoke.py reads these)
-launches = {"walk_leaf_levels": 0, "chain_levels": 0}
+launches = {"walk_leaf_levels": 0, "chain_levels": 0, "walk_branches": 0}
 
 
 def _check_words(t: torch.Tensor, name: str, dev: torch.device) -> None:
@@ -33,6 +37,21 @@ def _dense(t: torch.Tensor, name: str) -> torch.Tensor:
     return t
 
 
+def _lead_stride(t: torch.Tensor, nlead: int, name: str,
+                 aligned: bool = True) -> int:
+    """Word stride between consecutive branches of a view whose first `nlead`
+    dims index the branches and collapse to one stride, with 16-byte aligned
+    rows (unless `aligned` is False: rows read word by word)."""
+    stride = t.stride(nlead - 1) if nlead else 0
+    for d in range(nlead - 1):
+        if t.shape[d] > 1 and t.stride(d) != t.stride(d + 1) * t.shape[d + 1]:
+            raise ValueError(
+                f"{name}: leading dims do not collapse to one stride")
+    if aligned and (t.data_ptr() % 16 or stride % 4):
+        raise ValueError(f"{name}: rows must be 16-byte aligned")
+    return stride
+
+
 def _witness_stride(wit: torch.Tensor, nlead: int, levels: int) -> int:
     """Word stride between consecutive branches of a witness view
     [*lead, >=levels, 8] whose rows are dense (8 contiguous words, levels 8
@@ -41,13 +60,7 @@ def _witness_stride(wit: torch.Tensor, nlead: int, levels: int) -> int:
         raise ValueError(f"witness: bad shape {tuple(wit.shape)}")
     if wit.stride(-1) != 1 or (wit.shape[-2] > 1 and wit.stride(-2) != 8):
         raise ValueError("witness: level rows must be dense")
-    stride = wit.stride(nlead - 1) if nlead else 0
-    for d in range(nlead - 1):
-        if wit.shape[d] > 1 and wit.stride(d) != wit.stride(d + 1) * wit.shape[d + 1]:
-            raise ValueError("witness: leading dims do not collapse to one stride")
-    if wit.data_ptr() % 16 or stride % 4:
-        raise ValueError("witness: rows must be 16-byte aligned")
-    return stride
+    return _lead_stride(wit, nlead, "witness")
 
 
 def _chain_plain(res, witness_words, ti, levels):
@@ -142,4 +155,86 @@ def chain_levels(h, witness_words, tree_index, levels: int):
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "stark_chain_levels")
     launches["chain_levels"] += 1
+    return out
+
+
+def walk_branches_plain(value_words, sibling_words, witness_words, tree_index,
+                        depth):
+    """Plain version of walk_branches: the leaf pair-hash, then max_depth
+    masked steps -- a step at or past a branch's depth leaves its digest and
+    index as they are."""
+    max_depth = witness_words.shape[-2]
+    # uint32 bit patterns -> their values, so that >> and < are unsigned
+    ti = tree_index.to(torch.int64) & 0xFFFFFFFF
+    d = depth.to(torch.int64) & 0xFFFFFFFF
+    odd = ((ti & 1) != 0)[..., None]
+    res = blake2s.hash_leaf_pair(torch.where(odd, sibling_words, value_words),
+                                 torch.where(odd, value_words, sibling_words))
+    ti = ti >> 1
+    for k in range(max_depth):
+        w = witness_words[..., k, :]
+        odd = ((ti & 1) != 0)[..., None]
+        nres = blake2s.hash_pair(torch.where(odd, w, res),
+                                 torch.where(odd, res, w))
+        active = k < d
+        res = torch.where(active[..., None], nres, res)
+        ti = torch.where(active, ti >> 1, ti)
+    return res
+
+
+def walk_branches(value_words, sibling_words, witness_words, tree_index,
+                  depth):
+    """Leaf hash + each branch's OWN number of witness levels: the
+    independent walk of ragged and unshared groups.
+
+    value/sibling [..., vw] (any vw >= 1; may be a column slice of wider
+    rows); witness_words [..., max_depth, 8], rows past a branch's depth are
+    never read; tree_index [...] the 2^(depth+2)+permuted start index and
+    depth [...] the branch's witness count, both int32 holding uint32 bit
+    patterns.  A depth above max_depth walks max_depth levels.  Returns the
+    final [..., 8] digests (the caller compares them with the root)."""
+    if value_words.device.type == "cpu":
+        return walk_branches_plain(value_words, sibling_words, witness_words,
+                                   tree_index, depth)
+    dev = value_words.device
+    lead = value_words.shape[:-1]
+    vw = value_words.shape[-1]
+    for t, name in ((value_words, "value"), (sibling_words, "sibling"),
+                    (witness_words, "witness"), (tree_index, "tree_index"),
+                    (depth, "depth")):
+        _check_words(t, name, dev)
+    if vw < 1:
+        raise ValueError("value width must be at least one word")
+    if (sibling_words.shape != value_words.shape or tree_index.shape != lead
+            or depth.shape != lead):
+        raise ValueError("value / sibling / tree_index / depth shapes disagree")
+    if witness_words.shape[:-2] != lead:
+        raise ValueError("witness leading dims disagree with value")
+    max_depth = witness_words.shape[-2]
+    stride = _witness_stride(witness_words, len(lead), max_depth)
+    aligned = vw in (8, 24)              # the widths read by 16-byte loads
+    try:
+        if (value_words.stride(-1) != 1
+                or sibling_words.stride() != value_words.stride()):
+            raise ValueError("rows not dense or not laid out alike")
+        vstride = _lead_stride(value_words, len(lead), "value", aligned)
+        _lead_stride(sibling_words, len(lead), "sibling", aligned)
+    except ValueError:
+        # a column slice whose rows the kernel cannot read in place (a row
+        # width that breaks the 16-byte alignment): walk a dense copy
+        value_words = value_words.contiguous()
+        sibling_words = sibling_words.contiguous()
+        vstride = _lead_stride(value_words, len(lead), "value", aligned)
+    out = torch.empty(lead + (8,), dtype=torch.int32, device=dev)
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        rc = lib.stark_walk_branches(
+            value_words.data_ptr(), sibling_words.data_ptr(),
+            vstride if lead else vw, vw,
+            witness_words.data_ptr(), stride,
+            _dense(tree_index, "tree_index").data_ptr(),
+            _dense(depth, "depth").data_ptr(), max_depth, out.data_ptr(),
+            out.numel() // 8, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, "stark_walk_branches")
+    launches["walk_branches"] += 1
     return out

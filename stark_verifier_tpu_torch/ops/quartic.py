@@ -2,7 +2,8 @@
 
 Only the production form is ported (it is the plain version of the row
 kernel, ops/fri_cuda.py); the JAX package's barycentric cross-check forms are
-used by its tests alone.
+used by its tests alone.  Being a plain version, it multiplies through
+field_cuda.mul_mod_plain on either device, never through the multiply kernel.
 """
 
 from __future__ import annotations
@@ -10,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from . import field as F
+from .field_cuda import mul_mod_plain as _mul
 
 
 def eval4_even_odd(x1_inv: torch.Tensor, x1sq_inv: torch.Tensor,
@@ -44,19 +46,19 @@ def eval4_even_odd(x1_inv: torch.Tensor, x1sq_inv: torch.Tensor,
     g^{-1} = g^3 and 4^{-1} mod p.  Returns [..., G, 16] canonical.
     """
     sxc = F.canon(sx)
-    s2 = F.sqr_mod(sxc)                                   # shared per level
+    s2 = _mul(sxc, sxc)                                   # shared per level
     y = F.canon(ys)
     y0, y1, y2, y3 = (y[..., i, :] for i in range(4))
     s02, s13 = F.add_mod(y0, y2), F.add_mod(y1, y3)
     d02 = F.sub_mod(y0, y2)
-    c1 = F.mul_mod(F.sub_mod(y1, y3), ginv)
+    c1 = _mul(F.sub_mod(y1, y3), ginv)
     sa = F.add_mod(s02, s13)
     da = F.sub_mod(s02, s13)
     e = F.add_mod(d02, c1)
     f = F.sub_mod(d02, c1)
-    st = F.mul_mod(s2[..., None, :], x1sq_inv)            # v = sx^2 / x1^2
-    sxx = F.mul_mod(sxc[..., None, :], x1_inv)            # u = sx / x1
+    st = _mul(s2[..., None, :], x1sq_inv)            # v = sx^2 / x1^2
+    sxx = _mul(sxc[..., None, :], x1_inv)            # u = sx / x1
     # Horner in v: e*u + f*u*v == (e + f*v)*u -- one full multiply saved
-    efv = F.add_mod(e, F.mul_mod(f, st))
+    efv = F.add_mod(e, _mul(f, st))
     s = F.mul_sum_mod([(da, st), (efv, sxx)], extra=[sa])
-    return F.mul_mod(s, inv4)
+    return _mul(s, inv4)

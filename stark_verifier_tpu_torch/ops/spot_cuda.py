@@ -16,20 +16,23 @@ import torch
 
 from .. import _build
 from . import field as F
+from .field_cuda import mul_mod_plain as _mul
 
 launches = {"spot_checks": 0}
 
 
 def spot_checks_plain(raw5, tab5, ks4, ic1, ic0, power: int = 3):
     """Plain version of spot_checks: canonicalize the five trace values, then
-    each right-hand side as one mul_sum_mod, compared limb for limb."""
+    each right-hand side as one mul_sum_mod, compared limb for limb.  The
+    single products go through the multiply's plain version on either
+    device."""
     if power not in (2, 3):
         raise ValueError(f"unsupported transition power {power}")
     p, pg1, d, b, l = (F.canon(raw5[..., i, :]) for i in range(5))
     x, xs, z, z2, k = (tab5[..., i, :] for i in range(5))
     k1, k2, k3, k4 = (ks4[..., i, :] for i in range(4))
 
-    p_pow = [(F.sqr_mod(p), p)] if power == 3 else [(p, p)]
+    p_pow = [(_mul(p, p), p)] if power == 3 else [(p, p)]
     rhs_t = F.mul_sum_mod(p_pow + [(z, d)], extra=[k])
     ok_t = (pg1 == rhs_t).all(dim=-1)
 
@@ -37,8 +40,8 @@ def spot_checks_plain(raw5, tab5, ks4, ic1, ic0, power: int = 3):
                           extra=[ic0.expand(x.shape)])
     ok_b = (p == rhs_b).all(dim=-1)
 
-    p_xs = F.mul_mod_lazy(p, xs)
-    b_xs = F.mul_mod_lazy(b, xs)
+    p_xs = _mul(p, xs)
+    b_xs = _mul(b, xs)
     rhs_l = F.mul_sum_mod([(k1, p), (k2, p_xs), (k3, b), (k4, b_xs)],
                           extra=[d])
     ok_l = (l == rhs_l).all(dim=-1)

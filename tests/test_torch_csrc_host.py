@@ -21,7 +21,7 @@ import torch
 from stark_verifier_tpu_torch import _build, fp
 from stark_verifier_tpu_torch.config import StarkConfig, cached_tables
 from stark_verifier_tpu_torch.ops import (
-    field as F, fri_cuda, merkle_cuda, spot_cuda)
+    field as F, field_cuda, fri_cuda, merkle_cuda, spot_cuda)
 
 torch.set_num_threads(1)
 P = fp.MODULUS
@@ -190,3 +190,104 @@ def test_host_spot_boundary_holds(hostlib):
     assert rc == 0
     got = torch.stack([(bits & 1) != 0, (bits & 2) != 0, (bits & 4) != 0], -1)
     np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
+@pytest.mark.parametrize("shape_a,shape_b", [
+    ((40, 16), (40, 16)), ((40, 16), (16,)), ((16,), (40, 16)),
+    ((5, 8, 16), (8, 16)), ((5, 1, 16), (1, 8, 16)), ((16,), (16,))])
+def test_host_mul_mod(hostlib, shape_a, shape_b):
+    """Kernel E's body against its plain version: raw operands (edge values
+    on both sides), every broadcast the wrapper turns into a period or a
+    materialized copy."""
+    rng = np.random.RandomState(11)
+
+    def operand(shape, rev):
+        n = int(np.prod(shape[:-1])) if len(shape) > 1 else 1
+        vals = _special(rng, max(n, 8))[:n]
+        return _limbs(vals[::-1] if rev else vals).reshape(shape)
+
+    a, b = operand(shape_a, False), operand(shape_b, True)
+    want = field_cuda.mul_mod_plain(a, b)
+    lead = tuple(want.shape[:-1])
+    (ac, ap), (bc, bp) = field_cuda._period(a, lead), field_cuda._period(b, lead)
+    out = torch.empty(lead + (16,), dtype=torch.int32)
+    rc = hostlib.stark_mul_mod(ac.data_ptr(), ap, bc.data_ptr(), bp,
+                               out.data_ptr(), out.numel() // 16, None)
+    assert rc == 0
+    np.testing.assert_array_equal(out.numpy(), want.numpy())
+    ints = [fp.limbs_to_int(r) for r in
+            want.numpy().astype(np.uint32).reshape(-1, 16)]
+    ai = [fp.limbs_to_int(r) for r in a.expand(lead + (16,)).numpy()
+          .astype(np.uint32).reshape(-1, 16)]
+    bi = [fp.limbs_to_int(r) for r in b.expand(lead + (16,)).numpy()
+          .astype(np.uint32).reshape(-1, 16)]
+    assert ints == [x * y % P for x, y in zip(ai, bi)]
+
+
+def test_host_mul_mod_rejects_wide_limbs(hostlib):
+    """A limb of 2^16 or more, or a negative one, on either side: sixteen
+    words of 0xFFFFFFFF for that element and no other, in the kernel's body
+    as in the plain version."""
+    a = _limbs([3, 5, 7, 11])
+    b = _limbs([13, 17, 19, 23])
+    a[1, 4] = 1 << 16
+    b[2, 15] = -1
+    want = field_cuda.mul_mod_plain(a, b)
+    assert (want[1] == -1).all() and (want[2] == -1).all()
+    assert fp.limbs_to_int(want[0].numpy().astype(np.uint32)) == 39
+    out = torch.empty((4, 16), dtype=torch.int32)
+    assert hostlib.stark_mul_mod(a.data_ptr(), 4, b.data_ptr(), 4,
+                                 out.data_ptr(), 4, None) == 0
+    np.testing.assert_array_equal(out.numpy(), want.numpy())
+    assert hostlib.stark_mul_mod(a.data_ptr(), 0, b.data_ptr(), 4,
+                                 out.data_ptr(), 4, None) != 0
+
+
+@pytest.mark.parametrize("vw,max_depth", [(8, 5), (24, 5), (16, 4), (8, 0),
+                                          (3, 2)])
+def test_host_walk_branches(hostlib, vw, max_depth):
+    """Kernel F's body against its plain version: a depth per branch from 0
+    up to and past max_depth (clamped), widths with the vector-load leaf
+    hash (8, 24) and the word-by-word one."""
+    rng = np.random.RandomState(vw + max_depth)
+    n = 41
+    val, sib = _words(rng, (n, vw)), _words(rng, (n, vw))
+    wit = _words(rng, (n, max_depth, 8))
+    depth = _i32((np.arange(n) % (max_depth + 3)).astype(np.uint32))
+    depth[7] = -1                                  # 0xFFFFFFFF: clamped
+    ti = _words(rng, (n,))
+    out = torch.empty((n, 8), dtype=torch.int32)
+    rc = hostlib.stark_walk_branches(
+        val.data_ptr(), sib.data_ptr(), vw, vw, wit.data_ptr(), max_depth * 8,
+        ti.data_ptr(), depth.data_ptr(), max_depth, out.data_ptr(), n, None)
+    assert rc == 0
+    want = merkle_cuda.walk_branches_plain(val, sib, wit, ti, depth)
+    np.testing.assert_array_equal(out.numpy(), want.numpy())
+
+
+def test_host_walk_branches_column_slice_and_padded_witness(hostlib):
+    """Value rows read in place from wider rows (the per-class launches of a
+    ragged group), and a witness array one level deeper than every depth:
+    the padded level is never hashed."""
+    rng = np.random.RandomState(9)
+    n, depth = 12, 3
+    val, sib = _words(rng, (n, 24)), _words(rng, (n, 24))
+    wit = _words(rng, (n, depth, 8))
+    padded = torch.cat([wit, torch.zeros((n, 1, 8), dtype=torch.int32)], 1)
+    d = _i32(np.full(n, depth, dtype=np.uint32))
+    ti = _start_index(n, depth)
+    want = merkle_cuda.walk_branches_plain(val[:, :8], sib[:, :8], wit, ti, d)
+    np.testing.assert_array_equal(
+        want.numpy(),
+        merkle_cuda.walk_leaf_levels_plain(val[:, :8], sib[:, :8], wit, ti,
+                                           depth).numpy())
+    out = torch.empty((n, 8), dtype=torch.int32)
+    rc = hostlib.stark_walk_branches(
+        val.data_ptr(), sib.data_ptr(), 24, 8, padded.data_ptr(),
+        (depth + 1) * 8, ti.data_ptr(), d.data_ptr(), depth + 1,
+        out.data_ptr(), n, None)
+    assert rc == 0
+    np.testing.assert_array_equal(out.numpy(), want.numpy())
+    assert hostlib.stark_walk_branches(
+        val.data_ptr(), sib.data_ptr(), 4, 8, padded.data_ptr(), 32,
+        ti.data_ptr(), d.data_ptr(), 4, out.data_ptr(), n, None) != 0

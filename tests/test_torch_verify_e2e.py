@@ -1,11 +1,14 @@
-"""The slice as a whole: the port's verifier against the JAX package's on one
+"""The slices as a whole: the port's verifier against the JAX package's on one
 batch of a fresh proof, its 12 single-site tamperings and a few more good
-copies; plus the chunked form, the bytes facade and a second statement family
-against the oracle.
+copies; the unshared walk on the same batch and on a padded one with a
+short-depth proof, group by group against the JAX package's verify_branches;
+the runtime-statement verifier; plus the chunked form, the bytes facade and a
+second statement family against the oracle.
 
 The JAX verifier costs minutes to compile for each batch shape, so this file
 calls it with exactly one shape and is the only port test that does."""
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -13,10 +16,13 @@ import torch
 import oracle
 import prover
 from stark_verifier_tpu.config import StarkConfig as JCfg
+from stark_verifier_tpu.ops import merkle as JM
 from stark_verifier_tpu.proofio import device as jdevice, wire as jwire
 from stark_verifier_tpu.protocol import verify as JV
 import stark_verifier_tpu_torch as svt
+from stark_verifier_tpu_torch import fp
 from stark_verifier_tpu_torch.config import StarkConfig
+from stark_verifier_tpu_torch.ops import merkle as M
 from stark_verifier_tpu_torch.proofio import device, wire
 from stark_verifier_tpu_torch.protocol import verify as V
 
@@ -133,30 +139,144 @@ def test_wrong_input_rejects(blob):
                                   device="cpu") is False
 
 
-@pytest.mark.parametrize("what", ["strict", "runtime_inp", "constants",
-                                  "unshared"])
-def test_unported_options_raise(blob, what):
+# ---------------------------------------------------------------------------
+# the unshared walk: every branch on its own to the root
+# ---------------------------------------------------------------------------
+
+GROUPS = ["fri0_col", "fri0_poly", "fri1_col", "fri1_poly", "fri2_col",
+          "fri2_poly", "main", "lincomb"]
+
+
+def test_unshared_verdicts_equal_the_shared_ones(ref_batch, port_verdicts):
+    """shared_merkle=False on the batch the JAX verifier judged: the same
+    verdicts, from a verifier memoized on its own."""
+    fn, _ = V.make_verifier(CFG, 3, shared_merkle=False, device="cpu")
+    assert V.make_verifier(CFG, 3, shared_merkle=False, device="cpu")[0] is fn
+    assert V.make_verifier(CFG, 3, device="cpu")[0] is not fn
+    got = fn(device.tree_from_reference(ref_batch, "cpu"))
+    assert torch.equal(got, port_verdicts)
+    chunked, _ = V.make_chunked_verifier(CFG, 3, chunk=8, shared_merkle=False,
+                                         device="cpu")
+    assert torch.equal(chunked(device.tree_from_reference(ref_batch, "cpu")),
+                       port_verdicts)
+
+
+@pytest.fixture(scope="module")
+def padded_batch(ref_batch):
+    """The batch plus one good proof whose main depth is one short at one
+    branch, every witness array one zero level deeper than the depths: ragged
+    by is_rectangular, and honest but for the proofs that were not."""
+    short = device.tree_map(lambda x: np.array(x[0]), ref_batch)
+    short["main"]["depth"][3] -= 1
+    batch = device.tree_map(lambda a, b: np.concatenate([a, b[None]]),
+                            ref_batch, short)
+
+    def pad(w):
+        return np.concatenate([w, np.zeros_like(w[..., :1, :])], axis=-2)
+
+    batch["main"]["witness"] = pad(batch["main"]["witness"])
+    batch["lincomb"]["witness"] = pad(batch["lincomb"]["witness"])
+    for key in ("col_witness", "poly_witness"):
+        batch["fri"][key] = [pad(w) for w in batch["fri"][key]]
+    return batch
+
+
+@pytest.fixture(scope="module")
+def unshared_groups(padded_batch):
+    """The unshared verifier's verdicts on the padded batch, and the operands
+    and result of every verify_branches call it made."""
+    calls = []
+    real = M.verify_branches
+
+    def recording(*args, **kwargs):
+        out = real(*args, **kwargs)
+        calls.append((args, out[0]))
+        return out
+
+    fn, _ = V.make_verifier(CFG, 3, shared_merkle=False, device="cpu")
+    M.verify_branches = recording
+    try:
+        verdicts = fn(device.tree_from_reference(padded_batch, "cpu"))
+    finally:
+        M.verify_branches = real
+    assert len(calls) == len(GROUPS)
+    return verdicts, dict(zip(GROUPS, calls))
+
+
+def test_padded_is_not_tampered(ref_batch, padded_batch, unshared_groups):
+    """Padded proofs route to the unshared walk and keep their verdicts; the
+    short-depth proof rejects, and only it; the shared walk rejects them all
+    through its depth guard."""
+    assert device.is_rectangular(ref_batch)
+    assert not device.is_rectangular(padded_batch)
+    verdicts, _ = unshared_groups
+    assert verdicts.tolist() == EXPECT + [False]
+    shared, _ = V.make_verifier(CFG, 3, device="cpu")
+    assert not shared(device.tree_from_reference(padded_batch, "cpu")).any()
+
+
+@pytest.mark.parametrize("group", GROUPS)
+def test_group_walk_equals_jax_verify_branches(unshared_groups, group):
+    """Each group's per-branch verdicts against the JAX package's
+    verify_branches called eagerly on the same operands."""
+    _, groups = unshared_groups
+    (root, indices, value, sibling, witness, depth), got = groups[group]
+
+    def j(t):
+        return jnp.asarray(np.ascontiguousarray(t.numpy()).view(np.uint32)
+                           if t.dtype == torch.int32
+                           else t.numpy().astype(np.uint32))
+
+    want, _ = JM.verify_branches(j(root), j(indices), j(value), j(sibling),
+                                 j(witness), j(depth))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert got.shape == indices.shape and got[0].all()
+    if group == "main":
+        assert not got[-1, 3] and got[-1].sum() == got.shape[-1] - 1
+
+
+# ---------------------------------------------------------------------------
+# the runtime-statement verifier
+# ---------------------------------------------------------------------------
+
+def _limbs(x):
+    a = fp.ints_to_limbs(x) if isinstance(x, list) else fp.int_to_limbs(x)
+    return torch.from_numpy(a.astype(np.int32))
+
+
+@pytest.mark.parametrize("what,expect", [
+    ("statement", EXPECT), ("wrong_output", None), ("wrong_input", None),
+    ("changed_constant", None)])
+def test_general_verifier(ref_batch, port_verdicts, what, expect):
+    """Input, round constants and output as tensors: the static verifier's
+    verdicts for the statement, and no proof accepted for another one."""
+    fn, _ = V.make_general_verifier(CFG, device="cpu")
+    assert V.make_general_verifier(CFG, device="cpu")[0] is fn
+    out = oracle.mimc(3, 512, CONSTS)
+    consts = list(CONSTS)
+    if what == "changed_constant":
+        consts[7] ^= 1
+    got = fn(device.tree_from_reference(ref_batch, "cpu"),
+             _limbs(4 if what == "wrong_input" else 3), _limbs(consts),
+             _limbs(out + 1 if what == "wrong_output" else out))
+    if expect is None:
+        assert not got.any()
+    else:
+        assert got.tolist() == expect and torch.equal(got, port_verdicts)
+
+
+def test_general_verifier_unshared_on_the_padded_batch(padded_batch):
+    fn, _ = V.make_general_verifier(CFG, shared_merkle=False, device="cpu")
+    got = fn(device.tree_from_reference(padded_batch, "cpu"), _limbs(3),
+             _limbs(CONSTS), _limbs(oracle.mimc(3, 512, CONSTS)))
+    assert got.tolist() == EXPECT + [False]
+
+
+def test_general_verifier_refuses_another_constant_count(blob):
+    fn, _ = V.make_general_verifier(CFG, device="cpu")
     tree = device.to_device(device.proof_tree(wire.parse_proof(blob)), "cpu")
-    fn, tables = V.make_verifier(CFG, 3, device="cpu")
-    out = fn.output_limbs
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if what == "strict":
-            V.verify_mimc_proof(tree, 3, out, tables,
-                                StarkConfig(log_steps=9, strict=True))
-        elif what == "runtime_inp":
-            V.verify_mimc_proof(tree, out, out, tables, CFG)
-        elif what == "constants":
-            V.verify_mimc_proof(tree, 3, out, tables, CFG,
-                                constants_limbs=out[None])
-        else:
-            V.make_verifier(CFG, 3, shared_merkle=False, device="cpu")
-
-
-def test_ragged_proof_in_facade_raises(blob, monkeypatch):
-    from stark_verifier_tpu_torch.proofio import device as dmod
-    monkeypatch.setattr(dmod, "is_rectangular", lambda tree: False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        svt.verify_proof_bytes(blob, log_steps=9, device="cpu")
+    with pytest.raises(ValueError, match="constants_limbs"):
+        fn(tree, _limbs(3), _limbs(CONSTS[:32]), _limbs(1))
 
 
 def test_second_family_against_the_oracle():
