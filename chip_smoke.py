@@ -354,10 +354,18 @@ def check_spot(gen, cfg, b, reps):
             "pass_fractions": frac}
 
 
-def check_mul(gen, shape_a, shape_b, reps):
+def check_mul(gen, shape_a, shape_b, reps, upper_half=False):
     """Kernel E at one pair of operand shapes (leading shapes, broadcast):
-    raw operands, values >= p and the edge values on both sides."""
+    raw operands, values >= p and the edge values on both sides.  With
+    `upper_half`, `a` is the strided view the iNTT's butterfly multiplies:
+    the upper half of every block of twice its second-to-last length."""
     a, b = rand_limbs(gen, shape_a), rand_limbs(gen, shape_b)
+    if upper_half:
+        half = shape_a[-1]
+        blocks = torch.zeros(shape_a[:-1] + (2 * half, 16), dtype=torch.int32,
+                             device=DEV)
+        blocks[..., half:, :] = a
+        a = blocks[..., half:, :]
     if shape_b:
         b = b.flip(0).contiguous()       # the edge values meet random ones
         if b.shape[0] >= 6 and a.shape == b.shape:
@@ -377,7 +385,9 @@ def check_mul(gen, shape_a, shape_b, reps):
     plain_ms = time_ms(lambda: field_cuda.mul_mod_plain(a, b), 2)
     items = got.numel() // 16
     bms, by = bound(nbytes(a, b, got), items * (OPS_MUL + OPS_REDUCE))
-    return {"shape": f"{list(shape_a) + [16]} x {list(shape_b) + [16]}",
+    return {"shape": f"{list(shape_a) + [16]} x {list(shape_b) + [16]}"
+                     + (f", a with strides {list(a.stride())}" if upper_half
+                        else ""),
             "max_abs_err": err, "ms": ms, "device_ms": dms,
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by}
 
@@ -499,13 +509,19 @@ def kernel_phase(cfg, tables):
     c_case = check_rows(gen, tables, cfg, b, 20)
     d_case = check_spot(gen, cfg, b, 20)
     # kernel E at the runtime-statement path's shapes (a boundary product of
-    # one chunk, an iNTT stage of the 64 constants, its final scaling) and at
-    # a size whose bound reads real work
+    # one chunk and of the whole batch, every butterfly stage of the iNTT of
+    # the 64 constants as ops/ntt.py slices it, its final scaling) and at a
+    # size whose bound reads real work
     nc = cfg.num_constants
     e_cases = [check_mul(gen, (b,), (), 20),
-               check_mul(gen, (nc // 2,), (nc // 2,), 20),
-               check_mul(gen, (nc,), (), 20),
-               check_mul(gen, (MUL_BIG,), (MUL_BIG,), 10)]
+               check_mul(gen, (BATCH,), (), 20),
+               check_mul(gen, (), (BATCH,), 20),
+               check_mul(gen, (nc // 2,), (nc // 2,), 20)]
+    for s in range(nc.bit_length() - 1):
+        e_cases.append(check_mul(gen, (nc >> (s + 1), 1 << s), (1 << s,), 20,
+                                 upper_half=True))
+    e_cases += [check_mul(gen, (nc,), (), 20),
+                check_mul(gen, (MUL_BIG,), (MUL_BIG,), 10)]
     # kernel F on every group of the unshared path (the poly groups are
     # 4 x queries independent branches there), then mixed depths and a
     # padded level
@@ -817,6 +833,45 @@ def unshared_path(cfg, blob, tree_np, tree, want, kernels, consts, out):
     return fn_u
 
 
+def replay_mul_launches(call, expected, kernels):
+    """Every launch of kernel E that `call` makes, held word for word against
+    the plain version on the very operands the path gave it (the iNTT's
+    strided upper-half views with their twiddle tables, the boundary products
+    of the whole batch).  Runs `call` once more with the wrapper recorded;
+    these launches are not the ones counted for the path."""
+    seen = []
+    real = field_cuda.mul_mod
+
+    def recording(a, b):
+        out = real(a, b)
+        seen.append((a, b, out))
+        return out
+
+    field_cuda.mul_mod = recording
+    try:
+        call()
+        torch.cuda.synchronize()
+    finally:
+        field_cuda.mul_mod = real
+    if len(seen) != expected:
+        fail(f"the recorded call launched the multiply kernel {len(seen)} "
+             f"times, the counted one {expected} times")
+    shapes, worst = [], 0
+    for a, b, out in seen:
+        worst = max(worst, max_abs_err(out, field_cuda.mul_mod_plain(a, b)))
+        shapes.append(f"{list(a.shape)}{'' if a.is_contiguous() else ' strided'}"
+                      f" x {list(b.shape)}")
+    log(f"runtime-statement path: its {len(seen)} multiply launches replayed "
+        f"against the plain version: max_abs_err {worst}; operands "
+        + "; ".join(shapes))
+    for k in kernels:
+        if k["name"] == "mul_mod":
+            k["max_abs_err"] = max(k["max_abs_err"], worst)
+    if worst != 0:
+        fail("kernel mul_mod disagrees with its plain version on the "
+             "runtime-statement path's own operands")
+
+
 def runtime_statement_path(cfg, blob, tree, want, kernels, consts, out):
     """Phase 7.  Returns a call of the general verifier on a batch."""
     gfn, _ = V.make_general_verifier(cfg, device=DEV)
@@ -833,6 +888,8 @@ def runtime_statement_path(cfg, blob, tree, want, kernels, consts, out):
                                                "runtime-statement path")
     log(f"runtime-statement path: batch {BATCH}, input, constants and output "
         f"as tensors: verdicts equal the static path's; launches {counts}")
+    replay_mul_launches(lambda: gfn(tree, inp_l, consts_l, out_l),
+                        counts["mul_mod"], kernels)
     none = torch.zeros(BATCH, dtype=torch.bool)
     expect_verdicts("wrong output", gfn(tree, inp_l, consts_l,
                                         limbs_on_card((out + 1) % P)), none)
@@ -1002,6 +1059,8 @@ def main():
         # last: the profiler slows every later launch of the process
         profile_call(f"main path, batch {BATCH}", lambda: fn(good))
         profile_call(f"unshared path, batch {BATCH}", lambda: fn_u(good))
+        profile_call(f"runtime-statement path, batch {BATCH}",
+                     lambda: general(good))
 
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -88,8 +88,7 @@ def verify_mimc(inp, num_steps, round_constants, output, proofs,
     if golden_shape is None:
         out = np.zeros(len(blobs), dtype=bool)
         return bool(out[0]) if single else out
-    trees = dev_io.pad_witnesses(
-        [t if t is not None else golden_shape for t in trees])
+    trees = [t if t is not None else golden_shape for t in trees]
     shared = all(dev_io.is_rectangular(t) for t in trees)
     fn, _ = MimcStatement(cfg).make_general_verifier(shared_merkle=shared,
                                                      device=dev)

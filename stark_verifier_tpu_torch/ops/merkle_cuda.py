@@ -182,6 +182,29 @@ def walk_branches_plain(value_words, sibling_words, witness_words, tree_index,
     return res
 
 
+def _branch_rows(value_words, sibling_words, nlead: int):
+    """(value, sibling, word stride between branches) as the independent walk
+    reads them: in place where it can, and as dense copies in the one case it
+    cannot -- a width read by 16-byte loads (8 or 24 words) in rows that are
+    not 16-byte aligned (a column slice of wider rows).  Any other layout the
+    kernel cannot read raises."""
+    aligned = value_words.shape[-1] in (8, 24)
+    if aligned and any(
+            t.data_ptr() % 16 or (nlead and t.stride(nlead - 1) % 4)
+            for t in (value_words, sibling_words)):
+        value_words = value_words.contiguous()
+        sibling_words = sibling_words.contiguous()
+    if value_words.stride(-1) != 1 or any(
+            n > 1 and sv != ss for n, sv, ss in zip(
+                value_words.shape, value_words.stride(),
+                sibling_words.stride())):
+        raise ValueError("value / sibling: rows must be dense and the two "
+                         "laid out alike")
+    vstride = _lead_stride(value_words, nlead, "value", aligned)
+    _lead_stride(sibling_words, nlead, "sibling", aligned)
+    return value_words, sibling_words, vstride
+
+
 def walk_branches(value_words, sibling_words, witness_words, tree_index,
                   depth):
     """Leaf hash + each branch's OWN number of witness levels: the
@@ -212,19 +235,8 @@ def walk_branches(value_words, sibling_words, witness_words, tree_index,
         raise ValueError("witness leading dims disagree with value")
     max_depth = witness_words.shape[-2]
     stride = _witness_stride(witness_words, len(lead), max_depth)
-    aligned = vw in (8, 24)              # the widths read by 16-byte loads
-    try:
-        if (value_words.stride(-1) != 1
-                or sibling_words.stride() != value_words.stride()):
-            raise ValueError("rows not dense or not laid out alike")
-        vstride = _lead_stride(value_words, len(lead), "value", aligned)
-        _lead_stride(sibling_words, len(lead), "sibling", aligned)
-    except ValueError:
-        # a column slice whose rows the kernel cannot read in place (a row
-        # width that breaks the 16-byte alignment): walk a dense copy
-        value_words = value_words.contiguous()
-        sibling_words = sibling_words.contiguous()
-        vstride = _lead_stride(value_words, len(lead), "value", aligned)
+    value_words, sibling_words, vstride = _branch_rows(
+        value_words, sibling_words, len(lead))
     out = torch.empty(lead + (8,), dtype=torch.int32, device=dev)
     lib = _build.load()
     with torch.cuda.device(dev):

@@ -108,39 +108,6 @@ def is_rectangular(tree: dict) -> bool:
                     for l, w in enumerate(fri["poly_witness"])))
 
 
-def pad_witnesses(trees: list) -> list:
-    """Zero-pad every witness array of single-proof trees to the deepest one
-    of its group over the list, so that proofs whose branches carry different
-    witness counts stack into one batch.  The depths stay as they are: a
-    padded proof is ragged by is_rectangular and verifies through the
-    per-branch walk."""
-    def pad(*ws):
-        deepest = max(w.shape[-2] for w in ws)
-        return [np.pad(w, [(0, 0)] * (w.ndim - 2)
-                       + [(0, deepest - w.shape[-2]), (0, 0)]) for w in ws]
-
-    if len({tuple(w.shape for w in _witness_arrays(t)) for t in trees}) == 1:
-        return trees
-    padded = [pad(*ws) for ws in zip(*(_witness_arrays(t) for t in trees))]
-    out = []
-    for i, t in enumerate(trees):
-        ws = iter(p[i] for p in padded)
-        nl = len(t["fri"]["col_witness"])
-        fri = dict(t["fri"],
-                   col_witness=[next(ws) for _ in range(nl)],
-                   poly_witness=[next(ws) for _ in range(nl)])
-        out.append(dict(t, fri=fri,
-                        main=dict(t["main"], witness=next(ws)),
-                        lincomb=dict(t["lincomb"], witness=next(ws))))
-    return out
-
-
-def _witness_arrays(tree: dict) -> list:
-    fri = tree["fri"]
-    return (list(fri["col_witness"]) + list(fri["poly_witness"])
-            + [tree["main"]["witness"], tree["lincomb"]["witness"]])
-
-
 def stack_proofs(trees: list) -> dict:
     """Stack single-proof trees into a batch tree with leading axis."""
     return tree_map(lambda *xs: np.stack(xs), trees[0], *trees[1:])

@@ -154,14 +154,13 @@ def test_misrouted_ragged_proof_rejects_on_the_shared_walk(default_proof):
     assert not bool(fn(device.to_device(tree, "cpu")))
 
 
-def test_pad_witnesses_stacks_proofs_of_different_depths(default_proof):
+def test_ragged_and_rectangular_proofs_stack_into_one_batch(default_proof):
     blob, _ = default_proof
     cfg = StarkConfig(log_steps=9)
     trees = [device.proof_tree(wire.parse_and_validate(b, cfg))
              for b in (blob, _drop_last_witness(blob))]
-    assert device.pad_witnesses(trees[:1]) == trees[:1]
-    # the ragged proof's own arrays are already as deep as its deepest branch
-    batch = device.stack_proofs(device.pad_witnesses(trees))
+    # the ragged proof's own arrays are as deep as its deepest branch
+    batch = device.stack_proofs(trees)
     assert batch["lincomb"]["witness"].shape == (2, 80, 11, 8)
     assert not device.is_rectangular(batch)
     fn, _ = V.make_verifier(cfg, 3, shared_merkle=False, device="cpu")

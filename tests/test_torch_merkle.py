@@ -119,6 +119,32 @@ def test_chain_levels_strided_view_equals_copy():
         merkle_cuda._witness_stride(wit4[:, :, 0, :, ::2], 2, 3)
 
 
+def test_branch_rows_copy_only_for_unaligned_wide_loads():
+    """The independent walk reads value rows in place; it copies only a
+    width read by 16-byte loads out of rows that break the alignment, and
+    any other layout it cannot read raises instead of being copied."""
+    rng = np.random.RandomState(5)
+    wide = _t(_words(rng, (3, 6, 10)))
+    sib = _t(_words(rng, (3, 6, 10)))
+    v, s, stride = merkle_cuda._branch_rows(wide, sib, 2)
+    assert v is wide and s is sib and stride == 10   # word-by-word width
+    v, s, stride = merkle_cuda._branch_rows(wide[..., :3], sib[..., :3], 2)
+    assert v.data_ptr() == wide.data_ptr() and stride == 10
+    v, s, stride = merkle_cuda._branch_rows(wide[..., :8], sib[..., :8], 2)
+    assert v.is_contiguous() and s.is_contiguous() and stride == 8
+    np.testing.assert_array_equal(v.numpy(), wide[..., :8].numpy())
+    rows12 = _t(_words(rng, (3, 6, 12)))
+    v, _, stride = merkle_cuda._branch_rows(rows12[..., :8], rows12[..., :8], 2)
+    assert v.data_ptr() == rows12.data_ptr() and stride == 12   # in place
+    levels = _t(_words(rng, (3, 2, 6, 8)))
+    with pytest.raises(ValueError, match="collapse"):
+        merkle_cuda._branch_rows(levels[:, 1], levels[:, 1], 2)
+    with pytest.raises(ValueError, match="laid out alike"):
+        merkle_cuda._branch_rows(rows12[..., :8], levels[:, 0].contiguous(), 2)
+    with pytest.raises(ValueError, match="dense"):
+        merkle_cuda._branch_rows(rows12[..., ::2], rows12[..., ::2], 2)
+
+
 def test_wrappers_do_not_fall_back_for_non_cpu_tensors():
     """A tensor that is not on the CPU never reaches the plain version: the
     wrapper goes for the kernel, which cannot be built or launched here."""
