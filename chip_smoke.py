@@ -69,7 +69,7 @@ import numpy as np  # noqa: E402
 import oracle  # noqa: E402  (pure Python + hashlib)
 import prover  # noqa: E402  (pure Python)
 import stark_verifier_tpu_torch as sv  # noqa: E402
-from stark_verifier_tpu_torch import _build, fp  # noqa: E402
+from stark_verifier_tpu_torch import _build, fp, sass  # noqa: E402
 from stark_verifier_tpu_torch.config import StarkConfig, cached_tables  # noqa: E402
 from stark_verifier_tpu_torch.models.square import SquareStatement  # noqa: E402
 from stark_verifier_tpu_torch.ops import (  # noqa: E402
@@ -90,34 +90,47 @@ KERNEL_MODULES = (merkle_cuda, fri_cuda, spot_cuda, field_cuda)
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): 3.35 TB/s of device
 # memory bandwidth and 67 TFLOP/s of float32 outside the tensor cores.  The
-# sheet gives no int32 rate.  The float32 figure is 128 lanes an SM, each
-# counted as 2 operations per fused multiply-add: it is also the most
-# instructions of any kind an SM can issue (4 schedulers, one warp
-# instruction a clock each).  An SM has 64 int32 lanes, but the compiler may
-# send an integer add down the float pipe as a multiply-add, so only the issue
-# rate is a ceiling no kernel can pass: 67e12 / 2 integer instructions a
-# second.  (With 67e12 / 4, the 64 lanes alone, the independent walk was
-# measured at 0.99 of its "bound".)
+# float32 figure is 128 lanes an SM at about 1.98 GHz, each counted as 2
+# operations per fused multiply-add.  Two integer rates follow from it:
+#   * the issue rate, 67e12 / 2 instructions a second: 4 schedulers an SM,
+#     one warp instruction a clock each, so no kernel issues more, of any
+#     kind;
+#   * the ALU pipe's rate, 67e12 / 4: 16 lanes on each of the 4
+#     sub-partitions.  LOP3, SHF, PRMT, SEL and ISETP run there and nowhere
+#     else; an add may also run on the FMA pipe (IMAD, VIADD), so an add
+#     counts against the issue rate only.
+# An operations bound is the larger of (all instructions / issue rate) and
+# (ALU-only instructions / ALU rate), so it holds whichever pipe the code
+# sends its adds to.
 MEM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 67e12 / 2
+ISSUE_PER_S = 67e12 / 2
+ALU_PER_S = 67e12 / 4
 
-# Integer instructions per unit of work (what the bound counts):
-#   one Blake2s compression = 80 G functions of 12 instructions (a G is 14
-#     two-input operations, but the card adds three inputs in one IADD3, so
-#     a + b + x is one instruction);
-#   one 256x256-bit product = 64 32x32->64 multiply-adds = 128 instructions;
-#   one reduction of an accumulator mod p = 34 multiply-adds = 68 instructions;
-#   one modular add / sub / canonicalization = 16 instructions.
-OPS_COMPRESS = 80 * 12
-OPS_MUL, OPS_REDUCE, OPS_ADD = 128, 68, 16
-# kernel C: per row group the canonicalizations, the even/odd split and 7
-# products; per (proof, level) one canonicalization and squaring of special_x
-# (the kernel redoes that in every thread, which the bound does not count)
-OPS_ROW = 7 * OPS_MUL + 6 * OPS_REDUCE + 14 * OPS_ADD
-OPS_ROW_SX = OPS_MUL + OPS_REDUCE + OPS_ADD
-OPS_SPOT = 11 * OPS_MUL + 6 * OPS_REDUCE + 5 * OPS_ADD       # kernel D
-# kernel E: one product and one reduction an element; kernel F: the
-# compressions its branches' own depths need (OPS_COMPRESS each)
+# Instructions per unit of work, (all, ALU-only), from the SASS of the
+# kernels as built here (stark_verifier_tpu_torch/sass.py; the build phase
+# reads them again and says if they moved):
+#   one Blake2s compression: its LOP3, PRMT and SHF (650: the xors, rotates
+#     and feed-forward, ALU pipe only) and its adds, as the level loop of the
+#     walks issues them (the row's loads, the 16 message selects and the
+#     loop's control left out, so that a leaf's compressions count the
+#     same).  PR 2's code issued 321 adds (156 IADD3 on the ALU pipe, 156
+#     IMAD.IADD and 9 VIADD on the FMA pipe); blake2s.cuh now issues each
+#     three-input add as two IMADs: 480 adds on the FMA pipe.
+#   kernels C, D and E: the whole common path of one thread (sass.path):
+#     canonicalizations, products, reductions, limb packing, loads and
+#     stores; C redoes special_x's canonicalization and square per thread.
+OPS_COMPRESS = (650 + 480, 650)
+OPS_ROW = (4209, 276)                   # kernel C, a row group
+OPS_SPOT = {3: (4761, 347), 2: (4309, 342)}   # kernel D, a position
+OPS_MUL = (532, 75)                     # kernel E, an element
+# the SASS functions these are read from (sass.report's keys)
+# (a part of each mangled name, as sass.report keys them)
+SASS_COMPRESS = ("stark_walk_groups_kernelILb0", "stark_walk_groups_kernelILb1",
+                 "stark_chain_kernel")
+SASS_PATH = {"stark_eval4_kernel": OPS_ROW,
+             "stark_spot_kernelILi3": OPS_SPOT[3],
+             "stark_spot_kernelILi2": OPS_SPOT[2],
+             "stark_mul_mod_kernel": OPS_MUL}
 
 SITES = [
     ("merkle_root",), ("l_merkle_root",),
@@ -187,10 +200,14 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound(bytes_moved, ops):
-    tb = bytes_moved / MEM_BYTES_PER_S * 1e3
-    to = ops / INT32_OPS_PER_S * 1e3
-    return (tb, "bytes") if tb >= to else (to, "operations")
+def bound(bytes_moved, units, ops):
+    """(least ms, "bytes" or "operations", the three times) for `units` of
+    work of `ops` = (all, ALU-only) instructions each."""
+    parts = {"bytes_ms": bytes_moved / MEM_BYTES_PER_S * 1e3,
+             "issue_ms": units * ops[0] / ISSUE_PER_S * 1e3,
+             "alu_ms": units * ops[1] / ALU_PER_S * 1e3}
+    ms = max(parts.values())
+    return ms, ("bytes" if ms == parts["bytes_ms"] else "operations"), parts
 
 
 def max_abs_err(a, b):
@@ -234,27 +251,58 @@ def start_indices(lead, depth, gen):
 # phase 3: each kernel against its plain version
 # ---------------------------------------------------------------------------
 
-def check_walk(gen, b, n, vw, depth, levels, reps):
+def measure(label, call, plain, got, want, moved, units, ops, reps):
+    """A kernel case: its results against the plain version's, the wrapper's
+    and the device's time of `call`, the plain version's, and the bound for
+    `units` of work of `ops` instructions moving `moved` bytes."""
+    err = max(max_abs_err(g, w) for g, w in zip(got, want))
+    ms, dms = time_ms(call, reps), device_ms(call)
+    plain_ms = time_ms(plain, 2)
+    bms, by, parts = bound(moved, units, ops)
+    return {"shape": label, "max_abs_err": err, "ms": ms, "device_ms": dms,
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, **parts}
+
+
+def block_sweep(call):
+    """Device ms of a grouped walk at each block size the kernels take."""
+    keep, out = merkle_cuda.WALK_BLOCK, {}
+    try:
+        for blk in (32, 64, 128, 256):
+            merkle_cuda.WALK_BLOCK = blk
+            out[blk] = device_ms(call)
+    finally:
+        merkle_cuda.WALK_BLOCK = keep
+    return out
+
+
+def walk_inputs(gen, b, n, vw, depth, levels):
     val, sib = rand_words(gen, (b, n, vw)), rand_words(gen, (b, n, vw))
     wit = rand_words(gen, (b, n, depth, 8))
-    ti = start_indices((b, n), depth, gen)
-    got = merkle_cuda.walk_leaf_levels(val, sib, wit, ti, levels)
+    return (val, sib, wit, start_indices((b, n), depth, gen), levels)
+
+
+def check_walk(gen, b, specs, label, reps):
+    """Kernel A on the groups of `specs` ((n, vw, depth, levels) each, b x n
+    branches) in one launch, against the plain version group by group."""
+    groups = [walk_inputs(gen, b, *sp) for sp in specs]
+    got = merkle_cuda.walk_leaf_levels_groups(groups)
     torch.cuda.synchronize()
-    want = merkle_cuda.walk_leaf_levels_plain(val, sib, wit, ti, levels)
-    err = max_abs_err(got, want)
+    want = [merkle_cuda.walk_leaf_levels_plain(*g) for g in groups]
+    moved = compressions = 0
+    for val, sib, _, ti, levels in groups:
+        items = ti.numel()
+        moved += nbytes(val, sib, ti) + items * 32 * (levels + 1)
+        compressions += items * ((3 if val.shape[-1] == 24 else 1) + levels)
+
     def call():
-        return merkle_cuda.walk_leaf_levels(val, sib, wit, ti, levels)
-    ms, dms = time_ms(call, reps), device_ms(call)
-    plain_ms = time_ms(lambda: merkle_cuda.walk_leaf_levels_plain(
-        val, sib, wit, ti, levels), 2)
-    items = b * n
-    moved = nbytes(val, sib, ti, got) + items * levels * 32
-    ops = items * ((3 if vw == 24 else 1) + levels) * OPS_COMPRESS
-    bms, by = bound(moved, ops)
-    return {"shape": f"B={b} n={n} vw={vw} levels={levels}",
-            "max_abs_err": err, "ms": ms, "device_ms": dms,
-            "plain_ms": plain_ms,
-            "bound_ms": bms, "bound_by": by}
+        return merkle_cuda.walk_leaf_levels_groups(groups)
+    rec = measure(label, call,
+                  lambda: [merkle_cuda.walk_leaf_levels_plain(*g)
+                           for g in groups],
+                  got, want, moved, compressions, OPS_COMPRESS, reps)
+    if len(groups) > 1:
+        rec["block_sweep"] = block_sweep(call)
+    return rec
 
 
 def check_chain(gen, b, q, depth, levels, reps):
@@ -267,18 +315,12 @@ def check_chain(gen, b, q, depth, levels, reps):
     got = merkle_cuda.chain_levels(h, view, ti, levels)
     torch.cuda.synchronize()
     want = merkle_cuda.chain_levels_plain(h, view, ti, levels)
-    err = max_abs_err(got, want)
-    def call():
-        return merkle_cuda.chain_levels(h, view, ti, levels)
-    ms, dms = time_ms(call, reps), device_ms(call)
-    plain_ms = time_ms(lambda: merkle_cuda.chain_levels_plain(
-        h, view, ti, levels), 2)
     items = b * q
-    moved = nbytes(h, ti, got) + items * levels * 32
-    bms, by = bound(moved, items * levels * OPS_COMPRESS)
-    return {"shape": f"B={b} n={q} levels={levels}", "max_abs_err": err,
-            "ms": ms, "device_ms": dms, "plain_ms": plain_ms,
-            "bound_ms": bms, "bound_by": by}
+    return measure(f"B={b} n={q} levels={levels}",
+                   lambda: merkle_cuda.chain_levels(h, view, ti, levels),
+                   lambda: merkle_cuda.chain_levels_plain(h, view, ti, levels),
+                   [got], [want], nbytes(h, ti, got) + items * levels * 32,
+                   items * levels, OPS_COMPRESS, reps)
 
 
 def check_rows(gen, tables, cfg, b, reps):
@@ -296,17 +338,11 @@ def check_rows(gen, tables, cfg, b, reps):
     got = fri_cuda.eval4_rows(*args)
     torch.cuda.synchronize()
     want = fri_cuda.eval4_rows_plain(*args)
-    err = max_abs_err(got, want)
-    def call():
-        return fri_cuda.eval4_rows(*args)
-    ms, dms = time_ms(call, reps), device_ms(call)
-    plain_ms = time_ms(lambda: fri_cuda.eval4_rows_plain(*args), 2)
-    items = b * nl * q
-    moved = nbytes(x1_inv, x1sq_inv, ys, sx, got)
-    bms, by = bound(moved, items * OPS_ROW + b * nl * OPS_ROW_SX)
-    return {"shape": f"B={b} levels={nl} queries={q}", "max_abs_err": err,
-            "ms": ms, "device_ms": dms, "plain_ms": plain_ms,
-            "bound_ms": bms, "bound_by": by}
+    return measure(f"B={b} levels={nl} queries={q}",
+                   lambda: fri_cuda.eval4_rows(*args),
+                   lambda: fri_cuda.eval4_rows_plain(*args), [got], [want],
+                   nbytes(x1_inv, x1sq_inv, ys, sx, got), b * nl * q, OPS_ROW,
+                   reps)
 
 
 def check_spot(gen, cfg, b, reps):
@@ -334,24 +370,19 @@ def check_spot(gen, cfg, b, reps):
     got = spot_cuda.spot_checks(*args, power=cfg.power)
     torch.cuda.synchronize()
     want = spot_cuda.spot_checks_plain(*args, power=cfg.power)
-    err = max_abs_err(got, want)
     frac = want.to(torch.float32).mean(dim=(0, 1)).tolist()
     if not (want[:, 0::3, 0].all() and want[:, 1::3, 2].all()
             and want[:, 2::3, 1].all()) or want.all():
         fail("spot-check comparison inputs do not mix passing and failing "
              f"positions as intended (pass fractions {frac})")
-    def call():
-        return spot_cuda.spot_checks(*args, power=cfg.power)
-    ms, dms = time_ms(call, reps), device_ms(call)
-    plain_ms = time_ms(lambda: spot_cuda.spot_checks_plain(
-        *args, power=cfg.power), 2)
-    items = b * n
-    moved = nbytes(raw5, tab5, ks4, ic1, ic0) + items * 4
-    bms, by = bound(moved, items * OPS_SPOT)
-    return {"shape": f"B={b} positions={n}", "max_abs_err": err, "ms": ms,
-            "device_ms": dms, "plain_ms": plain_ms, "bound_ms": bms,
-            "bound_by": by,
-            "pass_fractions": frac}
+    rec = measure(f"B={b} positions={n}",
+                  lambda: spot_cuda.spot_checks(*args, power=cfg.power),
+                  lambda: spot_cuda.spot_checks_plain(*args, power=cfg.power),
+                  [got], [want],
+                  nbytes(raw5, tab5, ks4, ic1, ic0) + b * n * 4, b * n,
+                  OPS_SPOT[cfg.power], reps)
+    rec["pass_fractions"] = frac
+    return rec
 
 
 def check_mul(gen, shape_a, shape_b, reps, upper_half=False):
@@ -373,29 +404,19 @@ def check_mul(gen, shape_a, shape_b, reps, upper_half=False):
     got = field_cuda.mul_mod(a, b)
     torch.cuda.synchronize()
     want = field_cuda.mul_mod_plain(a, b)
-    err = max_abs_err(got, want)
-    canonical = F.canon(got)
-    if not torch.equal(canonical, got):
+    if not torch.equal(F.canon(got), got):
         fail("the multiply kernel returned a value that is not canonical")
-    del want, canonical
-
-    def call():
-        return field_cuda.mul_mod(a, b)
-    ms, dms = time_ms(call, reps), device_ms(call)
-    plain_ms = time_ms(lambda: field_cuda.mul_mod_plain(a, b), 2)
-    items = got.numel() // 16
-    bms, by = bound(nbytes(a, b, got), items * (OPS_MUL + OPS_REDUCE))
-    return {"shape": f"{list(shape_a) + [16]} x {list(shape_b) + [16]}"
-                     + (f", a with strides {list(a.stride())}" if upper_half
-                        else ""),
-            "max_abs_err": err, "ms": ms, "device_ms": dms,
-            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by}
+    label = (f"{list(shape_a) + [16]} x {list(shape_b) + [16]}"
+             + (f", a with strides {list(a.stride())}" if upper_half else ""))
+    return measure(label, lambda: field_cuda.mul_mod(a, b),
+                   lambda: field_cuda.mul_mod_plain(a, b), [got], [want],
+                   nbytes(a, b, got), got.numel() // 16, OPS_MUL, reps)
 
 
-def check_branches(gen, b, n, vw, depth, reps, max_depth=None, mixed=False):
-    """Kernel F on one group of the unshared path: b x n branches of `depth`
-    witness levels each (mixed: 1..max_depth by lane), witness arrays
-    max_depth deep (one more than depth = a padded level, never hashed)."""
+def branch_inputs(gen, b, n, vw, depth, max_depth=None, mixed=False):
+    """One group of the unshared path: b x n branches of `depth` witness
+    levels each (mixed: 1..max_depth by lane), witness arrays max_depth deep
+    (one more than depth = a padded level, never hashed)."""
     max_depth = max_depth or depth
     val, sib = rand_words(gen, (b, n, vw)), rand_words(gen, (b, n, vw))
     wit = rand_words(gen, (b, n, max_depth, 8))
@@ -408,39 +429,47 @@ def check_branches(gen, b, n, vw, depth, reps, max_depth=None, mixed=False):
                         dtype=torch.int64) % (1 << (d64 + 1))
     ld4 = 1 << (d64 - 1)
     ti = ((1 << (d64 + 2)) + idx // ld4 + 4 * (idx % ld4)).to(torch.int32)
-    d32 = d64.to(torch.int32)
-    args = (val, sib, wit, ti, d32)
-    got = merkle_cuda.walk_branches(*args)
+    return (val, sib, wit, ti, d64.to(torch.int32))
+
+
+def check_branches(gen, b, specs, label, reps, max_depth=None, mixed=False):
+    """Kernel F on the groups of `specs` ((n, vw, depth) each) in one
+    launch, against the plain version group by group (and, at a uniform
+    depth, against the static walk too)."""
+    groups = [branch_inputs(gen, b, *sp, max_depth=max_depth, mixed=mixed)
+              for sp in specs]
+    got = merkle_cuda.walk_branches_groups(groups)
     torch.cuda.synchronize()
-    want = merkle_cuda.walk_branches_plain(*args)
-    err = max_abs_err(got, want)
-    if not mixed and max_depth == depth:
+    want = [merkle_cuda.walk_branches_plain(*g) for g in groups]
+    if not mixed and max_depth is None:
         # at a uniform depth the independent walk is the static one
-        err = max(err, max_abs_err(got, merkle_cuda.walk_leaf_levels_plain(
-            val, sib, wit, ti, depth)))
+        got, want = got + got, want + [
+            merkle_cuda.walk_leaf_levels_plain(*g[:4], g[2].shape[-2])
+            for g in groups]
+    # what this run's depths need: the leaf's compressions and one a level
+    moved = compressions = 0
+    for val, sib, _, ti, d32 in groups:
+        levels = int(d32.sum().item())
+        moved += nbytes(val, sib, ti, d32) + ti.numel() * 32 + levels * 32
+        compressions += ti.numel() * (3 if val.shape[-1] == 24 else 1) + levels
 
     def call():
-        return merkle_cuda.walk_branches(*args)
-    ms, dms = time_ms(call, reps), device_ms(call)
-    plain_ms = time_ms(lambda: merkle_cuda.walk_branches_plain(*args), 2)
-    # what this run's depths need: the leaf's compressions and one per level
-    levels = int(d64.sum().item())
-    compressions = b * n * (3 if vw == 24 else 1) + levels
-    moved = nbytes(val, sib, ti, d32, got) + levels * 32
-    bms, by = bound(moved, compressions * OPS_COMPRESS)
-    what = (f"depths 1..{max_depth} by lane" if mixed else
-            f"depth={depth}" + (f" in {max_depth} rows" if max_depth != depth
-                                else ""))
-    return {"shape": f"B={b} n={n} vw={vw} {what}", "max_abs_err": err,
-            "ms": ms, "device_ms": dms, "plain_ms": plain_ms,
-            "bound_ms": bms, "bound_by": by, "compressions": compressions}
+        return merkle_cuda.walk_branches_groups(groups)
+    rec = measure(label, call,
+                  lambda: [merkle_cuda.walk_branches_plain(*g) for g in groups],
+                  got, want, moved, compressions, OPS_COMPRESS, reps)
+    rec["compressions"] = compressions
+    if len(groups) > 1:
+        rec["block_sweep"] = block_sweep(call)
+    return rec
 
 
 def check_value_classes(gen):
     """ops/merkle.verify_branches with a value size per branch on the card:
-    one launch of kernel F per size class (rows of 10 words, so the 32-byte
-    class is a slice the kernel cannot read in place and the others take the
-    word-by-word leaf hash), against the same call on the CPU."""
+    each size class a group of one launch of kernel F (rows of 10 words, so
+    the 32-byte class is a slice the kernel cannot read in place and the
+    others take the word-by-word leaf hash), against the same call on the
+    CPU."""
     b, n, max_depth, classes = 64, 96, 6, (32, 40, 12)
     val, sib = rand_words(gen, (b, n, 10)), rand_words(gen, (b, n, 10))
     wit = rand_words(gen, (b, n, max_depth, 8))
@@ -482,12 +511,34 @@ def check_value_classes(gen):
     if not (torch.equal(got.cpu(), want) and torch.equal(want, expect)):
         fail("verify_branches with value classes: card and CPU verdicts "
              "differ, or are not the expected ones")
-    if launched != 9:
+    if launched != 7:
         fail(f"verify_branches with value classes launched kernel F "
-             f"{launched} times, expected 9 (3 + 3 + 3)")
+             f"{launched} times, expected 7 (3 + 3 + 1)")
     log(f"verify_branches with value sizes {classes} per branch: card "
-        f"verdicts equal the CPU's and the expected ones; one launch of "
-        f"kernel F a class")
+        f"verdicts equal the CPU's and the expected ones; the classes in "
+        f"one launch of kernel F")
+
+
+def sass_phase():
+    """The instruction counts of the bounds against the built kernels' SASS
+    (stark_verifier_tpu_torch/sass.py).  Prints them; a count that moved is
+    reported, and the bounds keep the constants above."""
+    try:
+        rep = sass.report(str(_build.library_path()))
+    except (OSError, subprocess.SubprocessError) as e:
+        log(f"sass: not read ({e})")
+        return
+    for name, c in rep.items():
+        one = c["compression"]
+        seen = ((one["alu"] + one["adds"], one["alu"]) if one else
+                (c["path"]["all"], c["path"]["alu_only"]))
+        part = next((p for p in (*SASS_COMPRESS, *SASS_PATH) if p in name),
+                    None)
+        want = OPS_COMPRESS if part in SASS_COMPRESS else SASS_PATH.get(part)
+        what = "a compression" if one else "the common path"
+        log(f"sass {name}: {what} {json.dumps(one or c['path'])}; (all, "
+            f"ALU-only) {seen}" + ("" if want is None or seen == tuple(want)
+                                   else f" -- MOVED from {want}"))
 
 
 def kernel_phase(cfg, tables):
@@ -495,17 +546,25 @@ def kernel_phase(cfg, tables):
     gen.manual_seed(20240613)
     b = CHUNK
     dm = cfg.log_steps + 2               # witness depth of the main trees: 15
-    # the full-width level count the shared walk gives each group
-    # (ops/merkle.py: depth minus the dense tail, one level for the leaf)
-    a_cases = [check_walk(gen, b, 2 * cfg.spot_checks, 24, dm, dm - 3, 20),
-               check_walk(gen, b, cfg.spot_checks, 8, dm, dm - 3, 20)]
-    for l in range(cfg.fri_levels):
-        d = dm - 2 - 2 * l                           # column tree depth
-        a_cases.append(check_walk(gen, b, cfg.fri_queries, 8, d, d - 3, 20))
+    # kernel A: the groups of the shared walk's two call sites, each site in
+    # one launch (main + lincomb; the five FRI column groups), then each
+    # group alone (one launch each, PR 2's shapes).  The level count is the
+    # one the shared walk gives a group (ops/merkle.py: depth minus the
+    # dense tail, one level for the leaf).
+    sp, q, nl = cfg.spot_checks, cfg.fri_queries, cfg.fri_levels
+    a_main = [(2 * sp, 24, dm, dm - 3), (sp, 8, dm, dm - 3)]
+    a_cols = [(q, 8, dm - 2 - 2 * l, dm - 5 - 2 * l) for l in range(nl)]
+    a_cases = [check_walk(gen, b, a_main, "main + lincomb, one launch", 20),
+               check_walk(gen, b, a_cols, "5 FRI column groups, one launch",
+                          20)]
+    for spec in a_main + a_cols:
+        n, vw, _, levels = spec
+        a_cases.append(check_walk(gen, b, [spec],
+                                  f"B={b} n={n} vw={vw} levels={levels}", 20))
     b_cases = []
-    for l in range(cfg.fri_levels):
+    for l in range(nl):
         d = dm - 2 * l                               # poly tree depth
-        b_cases.append(check_chain(gen, b, cfg.fri_queries, d, d - 4, 20))
+        b_cases.append(check_chain(gen, b, q, d, d - 4, 20))
     c_case = check_rows(gen, tables, cfg, b, 20)
     d_case = check_spot(gen, cfg, b, 20)
     # kernel E at the runtime-statement path's shapes (a boundary product of
@@ -522,25 +581,31 @@ def kernel_phase(cfg, tables):
                                  upper_half=True))
     e_cases += [check_mul(gen, (nc,), (), 20),
                 check_mul(gen, (MUL_BIG,), (MUL_BIG,), 10)]
-    # kernel F on every group of the unshared path (the poly groups are
-    # 4 x queries independent branches there), then mixed depths and a
-    # padded level
-    f_cases = [check_branches(gen, b, 2 * cfg.spot_checks, 24, dm, 10),
-               check_branches(gen, b, cfg.spot_checks, 8, dm, 10)]
-    for l in range(cfg.fri_levels):
-        f_cases.append(check_branches(gen, b, cfg.fri_queries, 8,
-                                      dm - 2 - 2 * l, 10))
-    for l in range(cfg.fri_levels):
-        f_cases.append(check_branches(gen, b, 4 * cfg.fri_queries, 8,
-                                      dm - 2 * l, 10))
-    f_cases.append(check_branches(gen, b, 2 * cfg.spot_checks, 8, dm, 10,
-                                  mixed=True))
-    f_cases.append(check_branches(gen, b, 2 * cfg.spot_checks, 24, dm, 10,
-                                  max_depth=dm + 1))
+    # kernel F on the groups of the unshared path's two call sites, each in
+    # one launch (main + lincomb; 5 column and 5 poly groups, the poly
+    # groups 4 x queries independent branches there), then each group
+    # alone, mixed depths and a padded level
+    f_main = [(2 * sp, 24, dm), (sp, 8, dm)]
+    f_fri = ([(q, 8, dm - 2 - 2 * l) for l in range(nl)]
+             + [(4 * q, 8, dm - 2 * l) for l in range(nl)])
+    f_cases = [check_branches(gen, b, f_main, "main + lincomb, one launch",
+                              10),
+               check_branches(gen, b, f_fri,
+                              "5 column + 5 poly groups, one launch", 10)]
+    for n, vw, depth in f_main + f_fri:
+        f_cases.append(check_branches(
+            gen, b, [(n, vw, depth)], f"B={b} n={n} vw={vw} depth={depth}",
+            10))
+    f_cases.append(check_branches(
+        gen, b, [(2 * sp, 8, dm)], f"B={b} n={2 * sp} vw=8 depths 1..{dm} "
+        "by lane", 10, mixed=True))
+    f_cases.append(check_branches(
+        gen, b, [(2 * sp, 24, dm)], f"B={b} n={2 * sp} vw=24 depth={dm} in "
+        f"{dm + 1} rows", 10, max_depth=dm + 1))
     check_value_classes(gen)
-    per_proof = sum(c["compressions"] for c in f_cases[:-2]) // b
+    per_proof = sum(c["compressions"] for c in f_cases[:2]) // b
     log(f"unshared walk: {per_proof} compressions a proof over "
-        f"{len(f_cases) - 2} groups")
+        f"{len(f_main + f_fri)} groups in two launches")
 
     def record(name, source, replaces, cases):
         main = cases[0]
@@ -749,6 +814,9 @@ def main_path(cfg, blob, tree_np, kernels):
     verdicts = expect_verdicts("main path", verdicts, want)
     shared = ("walk_leaf_levels", "chain_levels", "eval4_rows", "spot_checks")
     require_launches("main path", counts, shared, idle=("walk_branches",))
+    if counts["walk_leaf_levels"] != 2 * (BATCH // CHUNK):
+        fail(f"the main path launched kernel A {counts['walk_leaf_levels']} "
+             f"times, expected 2 a chunk (main + lincomb; the column groups)")
     for k in kernels:
         if k["name"] in shared:
             k["launches"], k["launches_on"] = counts[k["name"]], "main path"
@@ -786,6 +854,9 @@ def unshared_path(cfg, blob, tree_np, tree, want, kernels, consts, out):
     require_launches("unshared path", counts,
                      ("walk_branches", "eval4_rows", "spot_checks"),
                      idle=("walk_leaf_levels", "chain_levels"))
+    if counts["walk_branches"] != 2 * (BATCH // CHUNK):
+        fail(f"the unshared path launched kernel F {counts['walk_branches']} "
+             f"times, expected 2 a chunk (the FRI groups; main + lincomb)")
     for k in kernels:
         if k["name"] == "walk_branches":
             k["launches"], k["launches_on"] = (counts["walk_branches"],
@@ -975,12 +1046,16 @@ def main():
     log(f"python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
 
+    defines = [a.split("=", 1)[1] for a in sys.argv if a.startswith("--define=")]
+    _build.NVCC_FLAGS.extend("-D" + d for d in defines)
     _build.load()
     log(f"build: {_build.build_seconds():.1f} s "
-        f"({len(_build.sources())} sources, nvcc sm_90a)")
+        f"({len(_build.sources())} sources, nvcc sm_90a"
+        + "".join(f", -D{d}" for d in defines) + ")")
     for line in _build.build_log().splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log("  ptxas: " + line.strip())
+    sass_phase()
 
     cfg = StarkConfig(log_steps=LOG_STEPS)
     consts = [(i ** 7) ^ 42 for i in range(cfg.num_constants)]
@@ -995,9 +1070,16 @@ def main():
                 f"{c['max_abs_err']}, wrapper {c['ms']:.4f} ms, device "
                 f"{c['device_ms']:.4f} ms, plain "
                 f"{c['plain_ms']:.2f} ms, bound {c['bound_ms']:.4f} ms "
-                f"({c['bound_by']})")
+                f"({c['bound_by']}; bytes {c['bytes_ms']:.4f}, issue "
+                f"{c['issue_ms']:.4f}, ALU pipe {c['alu_ms']:.4f})"
+                + (f", device ms by block size {c['block_sweep']}"
+                   if "block_sweep" in c else ""))
         if not k["match"]:
             fail(f"kernel {k['name']} disagrees with its plain version")
+    if "--kernels-only" in sys.argv:
+        log(smi)
+        log(json.dumps({"kernels": kernels}))
+        return
 
     t0 = time.perf_counter()
     blob = golden_proof(cfg)

@@ -28,15 +28,27 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _p, _ll, _i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _u32p = ctypes.POINTER(ctypes.c_uint32)
+
+
+class WalkGroup(ctypes.Structure):
+    """One branch group of the grouped Merkle walks (csrc/merkle_walk.cu,
+    struct stark_walk_group: the same fields in the same order)."""
+    _fields_ = [("value", _p), ("sibling", _p), ("witness", _p),
+                ("tidx", _p), ("depth", _p), ("out", _p),
+                ("vstride", _ll), ("wit_stride", _ll), ("n", _ll),
+                ("vw", _i), ("levels", _i), ("first_block", _ll)]
+
+
+_groups = ctypes.POINTER(WalkGroup)
 # C entry points: every pointer and the stream are c_void_p (a bare Python
 # int would be passed as a 32-bit int and cut the pointer)
 SIGNATURES = {
-    "stark_walk_leaf_levels": [_p, _p, _p, _ll, _p, _p, _i, _i, _ll, _p],
+    "stark_walk_leaf_levels_groups": [_groups, _i, _i, _p],
     "stark_chain_levels": [_p, _p, _ll, _p, _p, _i, _ll, _p],
     "stark_eval4_rows": [_p, _p, _p, _p, _u32p, _u32p, _ll, _p, _ll, _p],
     "stark_spot_checks": [_p, _p, _p, _p, _p, _ll, _i, _p, _ll, _p],
     "stark_mul_mod": [_p, _ll, _p, _ll, _p, _ll, _p],
-    "stark_walk_branches": [_p, _p, _ll, _i, _p, _ll, _p, _p, _i, _p, _ll, _p],
+    "stark_walk_branches_groups": [_groups, _i, _i, _p],
 }
 
 _state = {"lib": None, "seconds": None, "log": ""}
@@ -107,13 +119,18 @@ def _compile(nvcc: str, out: Path) -> str:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def library_path() -> Path:
+    """Where the library of this source state (and these flags) is built."""
+    return BUILD_DIR / f"libstark_kernels_{source_hash()}.so"
+
+
 def load() -> ctypes.CDLL:
     """The kernels' shared library, built first if this source state has not
     been built here before."""
     if _state["lib"] is not None:
         return _state["lib"]
     t0 = time.perf_counter()
-    out = BUILD_DIR / f"libstark_kernels_{source_hash()}.so"
+    out = library_path()
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         _state["log"] = _compile(find_nvcc(), out)

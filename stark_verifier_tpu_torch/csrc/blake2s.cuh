@@ -6,6 +6,22 @@
 // hash: the 16 state words and the 16 message words are scalars in registers,
 // the ten rounds are unrolled with the message schedule as literals, and a
 // rotate is one funnel shift (12, 7) or one byte permute (16, 8).
+//
+// What bounds it on an H100: the integer ALU pipe.  A G function is 4 xors
+// and 4 rotates, which only the ALU pipe runs (LOP3, PRMT, SHF: 16 lanes on
+// each of an SM's 4 sub-partitions), and 4 adds, which the FMA pipe can take
+// as multiply-adds (IMAD, 16 lanes a sub-partition too).  Left to itself,
+// ptxas emits the two-input adds (c + d) as IMAD.IADD but the three-input
+// ones (a + b + x) as IADD3 on the ALU pipe: the SASS of a walk level held
+// 650 ALU-only instructions (329 LOP3, 160 PRMT, 161 SHF) and 156 IADD3 on
+// the ALU pipe against 165 adds on the FMA pipe.  Here every add of G is an
+// explicit multiply-add by a 1 the compiler cannot fold (b2s_one, a
+// __constant__), so the ALU pipe carries only the xors, rotates and selects:
+// 650 instructions a compression, the least any code with one LOP3 per xor
+// and one PRMT or SHF per rotate can issue there.  The FMA pipe then carries
+// the 480 adds, 2 for each three-input one, and stays below the ALU pipe.
+// chip_smoke.py counts both from the SASS (stark_verifier_tpu_torch/sass.py)
+// and bounds the walks by the ALU pipe.
 #pragma once
 #include "common.cuh"
 
@@ -31,16 +47,32 @@ STARK_HD uint32_t b2s_rotr(uint32_t x) {
 #endif
 }
 
-#define B2S_G(a, b, c, d, x, y) \
-  do {                          \
-    a = a + b + (x);            \
-    d = b2s_rotr<16>(d ^ a);    \
-    c = c + d;                  \
-    b = b2s_rotr<12>(b ^ c);    \
-    a = a + b + (y);            \
-    d = b2s_rotr<8>(d ^ a);     \
-    c = c + d;                  \
-    b = b2s_rotr<7>(b ^ c);     \
+#if defined(__CUDACC__)
+// A 1 in constant memory: the host may rewrite it, so no compiler folds it.
+static __constant__ uint32_t b2s_one = 1u;
+#endif
+
+// a + b on the FMA pipe (an IMAD by b2s_one); a plain add on the host.
+STARK_HD uint32_t b2s_add(uint32_t a, uint32_t b) {
+#if defined(__CUDA_ARCH__)
+  uint32_t r;
+  asm("mad.lo.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b2s_one), "r"(b));
+  return r;
+#else
+  return a + b;
+#endif
+}
+
+#define B2S_G(a, b, c, d, x, y)         \
+  do {                                  \
+    a = b2s_add(a, b2s_add(b, (x)));    \
+    d = b2s_rotr<16>(d ^ a);            \
+    c = b2s_add(c, d);                  \
+    b = b2s_rotr<12>(b ^ c);            \
+    a = b2s_add(a, b2s_add(b, (y)));    \
+    d = b2s_rotr<8>(d ^ a);             \
+    c = b2s_add(c, d);                  \
+    b = b2s_rotr<7>(b ^ c);             \
   } while (0)
 
 #define B2S_ROUND(s0, s1, s2, s3, s4, s5, s6, s7, s8, s9, s10, s11, s12, s13, \

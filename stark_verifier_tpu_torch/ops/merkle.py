@@ -110,44 +110,67 @@ def verify_branches(root_words, indices, value_words, sibling_words,
     vsizes:        optional [..., n] per-branch value BYTES for ragged value
                    sizes (deserializer.rs:104-119); requires vsize_classes,
                    the static tuple of distinct sizes.  Each class is walked
-                   in its own launch and selected per branch; a size in no
-                   class takes the first class's.
+                   as a group of the launch and selected per branch; a size
+                   in no class takes the first class's.
 
     Returns (ok [..., n] bool, value_words passthrough) -- mirroring
     MultiProof::verify returning the leaf values (merkle_tree.rs:25-44).
     """
-    dev = indices.device
-    d = _u32(torch.as_tensor(depth, device=dev))
-    if d.dim() and d.dim() < indices.dim():
-        d = d[..., None]
-    d = d.expand(indices.shape)
-    valid = (d >= 1) & (d <= MAX_BRANCH_DEPTH)
-    ds = d.clamp(1, MAX_BRANCH_DEPTH)
+    ok = verify_branches_groups([dict(
+        root=root_words, indices=indices, value=value_words,
+        sibling=sibling_words, witness=witness_words, depth=depth,
+        vsizes=vsizes, vsize_classes=vsize_classes)])[0]
+    return ok, value_words.contiguous()
 
-    # uint32 arithmetic, as the reference's: int64 masked to 32 bits
-    ind = _u32(indices)
-    ld4 = 1 << (ds - 1)                          # 2^(w+1) / 4
-    idx = ((ind // ld4) + 4 * (ind % ld4)) & 0xFFFFFFFF
-    tree_index = (((1 << (ds + 2)) + idx) & 0xFFFFFFFF).to(torch.int32)
-    depth32 = ds.to(torch.int32).contiguous()
 
-    value_words = value_words.contiguous()
-    sibling_words = sibling_words.contiguous()
-    if vsizes is None:
-        res = merkle_cuda.walk_branches(value_words, sibling_words,
-                                        witness_words, tree_index, depth32)
-    else:
-        res = None
-        for cls in vsize_classes:                # static byte sizes
-            h = merkle_cuda.walk_branches(
-                value_words[..., :cls // 4], sibling_words[..., :cls // 4],
-                witness_words, tree_index, depth32)
-            sel = (_u32(vsizes) == cls)[..., None]
-            res = h if res is None else torch.where(sel, h, res)
+def verify_branches_groups(groups: list) -> list:
+    """verify_branches over several groups, all walked in one launch of
+    kernel F (ops/merkle_cuda.walk_branches_groups).
 
-    if root_words.dim() < res.dim():
-        root_words = root_words[..., None, :]
-    return _eq8(res, root_words) & valid, value_words
+    groups: dicts with the arguments of verify_branches by name (root,
+    indices, value, sibling, witness, depth; optional vsizes and
+    vsize_classes).  Returns one ok [..., n] bool tensor a group."""
+    walks, plans = [], []
+    for g in groups:
+        indices = g["indices"]
+        dev = indices.device
+        d = _u32(torch.as_tensor(g["depth"], device=dev))
+        if d.dim() and d.dim() < indices.dim():
+            d = d[..., None]
+        d = d.expand(indices.shape)
+        valid = (d >= 1) & (d <= MAX_BRANCH_DEPTH)
+        ds = d.clamp(1, MAX_BRANCH_DEPTH)
+
+        # uint32 arithmetic, as the reference's: int64 masked to 32 bits
+        ind = _u32(indices)
+        ld4 = 1 << (ds - 1)                      # 2^(w+1) / 4
+        idx = ((ind // ld4) + 4 * (ind % ld4)) & 0xFFFFFFFF
+        tree_index = (((1 << (ds + 2)) + idx) & 0xFFFFFFFF).to(torch.int32)
+        depth32 = ds.to(torch.int32).contiguous()
+
+        value = g["value"].contiguous()
+        sibling = g["sibling"].contiguous()
+        classes = g.get("vsize_classes") if g.get("vsizes") is not None \
+            else None
+        widths = [value.shape[-1]] if classes is None else \
+            [cls // 4 for cls in classes]        # static byte sizes
+        plans.append((g, valid, classes, len(walks)))
+        walks += [(value[..., :vw], sibling[..., :vw], g["witness"],
+                   tree_index, depth32) for vw in widths]
+
+    hs = merkle_cuda.walk_branches_groups(walks)
+    oks = []
+    for g, valid, classes, at in plans:
+        res = hs[at]
+        if classes is not None:
+            vs = _u32(g["vsizes"])
+            for k, cls in enumerate(classes[1:], start=1):
+                res = torch.where((vs == cls)[..., None], hs[at + k], res)
+        root = g["root"]
+        if root.dim() < res.dim():
+            root = root[..., None, :]
+        oks.append(_eq8(res, root) & valid)
+    return oks
 
 
 def _dense_agree_minmax(vals: torch.Tensor, o: torch.Tensor, width: int):
@@ -175,7 +198,10 @@ def _dense_agree_minmax(vals: torch.Tensor, o: torch.Tensor, width: int):
 
 
 def _shared_bottom(group: dict) -> dict:
-    """Leaf hash + full-width lower levels + switchover to dense node form."""
+    """Leaf hash + full-width lower levels, up to the switchover.  A
+    non-quad group's leaf hash and levels are left to the caller as
+    st["walk"], one group of a walk_leaf_levels_groups launch; a quad
+    group's are done here."""
     indices = group["indices"].to(torch.int64)
     witness = group["witness"]                  # [..., n, w, 8]
     w = witness.shape[-2]
@@ -188,15 +214,14 @@ def _shared_bottom(group: dict) -> dict:
     ti0 = (1 << (w + 2)) + idx
 
     val, sib = group["value"], group["sibling"]
+    st = {"w": w, "ok": ok, "root": group["root"]}
     if not group.get("quad"):
         # leaf + full-width levels in one kernel (digests stay in registers
-        # between levels); the dense-tail dedup below takes over at level t0
+        # between levels); the dense-tail dedup takes over at level t0
         t0 = max(1, w - min(_flog2(max(1, n - 1)), TAIL_CAP))
-        res = merkle_cuda.walk_leaf_levels(
-            val.contiguous(), sib.contiguous(), witness,
-            ti0.to(torch.int32), levels=t0 - 1)
-        ti = ti0 >> t0
-        n_eff = n
+        st["walk"] = (val.contiguous(), sib.contiguous(), witness,
+                      ti0.to(torch.int32), t0 - 1)
+        st.update(n=n, t0=t0, ti=ti0 >> t0, wit=witness, ti0=ti0)
     else:
         # Sibling-quad form (FRI poly groups): branch 4k+i queries position
         # y_k + (rou_deg/4)*i, whose PERMUTED index is 4*y_k + i
@@ -252,19 +277,21 @@ def _shared_bottom(group: dict) -> dict:
                 res.contiguous(), witness[..., consumed - 1:t0 - 1, :],
                 ti.to(torch.int32), levels=t0 - consumed)
             ti = ti >> (t0 - consumed)
+        st.update(ok=ok, n=n_eff, t0=t0, ti=ti, wit=witness, ti0=ti0,
+                  res=res)
+    return st
 
-    # dense switchover: live keys ti = ti0 >> t0 span one aligned interval,
-    # so (key - base) is the node's slot.  Branches sharing a node must agree
-    # on the running hash; the agreed value becomes the slot state.
+
+def _switchover(st: dict) -> None:
+    """Dense switchover: live keys ti = ti0 >> t0 span one aligned interval,
+    so (key - base) is the node's slot.  Branches sharing a node must agree
+    on the running hash; the agreed value becomes the slot state."""
+    w, t0 = st["w"], st["t0"]
     we = 1 << (w + 1 - t0)
-    o = ti - (1 << (w + 2 - t0))                # [..., n_eff]
-    state, valid, agree = _dense_agree_minmax(res, o, we)
-    return {
-        "n": n_eff, "w": w, "t0": t0, "tail_len": w - t0 + 1,
-        "ok": ok & agree,
-        "root": group["root"], "wit": witness, "ti0": ti0,
-        "state": state, "valid": valid,
-    }
+    o = st.pop("ti") - (1 << (w + 2 - t0))      # [..., n_eff]
+    state, valid, agree = _dense_agree_minmax(st.pop("res"), o, we)
+    st.update(tail_len=w - t0 + 1, ok=st["ok"] & agree, state=state,
+              valid=valid)
 
 
 def _tail_inputs(st: dict, j: int):
@@ -312,6 +339,13 @@ def verify_groups_shared(groups: list) -> list:
     dense tails stack into one Blake2s call per tree level.
     """
     sts = [_shared_bottom(g) for g in groups]
+    # the leaf walks of every non-quad group in one launch of kernel A
+    walking = [st for st in sts if "walk" in st]
+    for st, res in zip(walking, merkle_cuda.walk_leaf_levels_groups(
+            [st.pop("walk") for st in walking])):
+        st["res"] = res
+    for st in sts:
+        _switchover(st)
     for j in range(max(st["tail_len"] for st in sts) - 1, -1, -1):
         parts = [st for st in sts if st["tail_len"] > j]
         ins = [_tail_inputs(st, j) for st in parts]

@@ -7,8 +7,10 @@ full-width lower levels of the shared-path walk (ops/merkle._shared_bottom);
 F is the whole independent walk of a branch with its own depth, which
 ops/merkle.verify_branches runs for unshared and ragged groups.  The kernels
 live in csrc/merkle_walk.cu: one thread per branch, reading the branch's rows
-straight from the proof tree's layout.  A wrapper launches its kernel for a
-CUDA tensor (or raises) and takes the plain version only for a CPU tensor.
+straight from the proof tree's layout.  A and F walk a list of groups in one
+launch (walk_leaf_levels_groups, walk_branches_groups); the one-group
+wrappers are such lists of one.  A wrapper launches its kernel for a CUDA
+tensor (or raises) and takes the plain version only for a CPU tensor.
 """
 
 from __future__ import annotations
@@ -20,6 +22,11 @@ from . import blake2s
 
 # launches per kernel since the last reset (chip_smoke.py reads these)
 launches = {"walk_leaf_levels": 0, "chain_levels": 0, "walk_branches": 0}
+
+# Threads a block of the grouped walks A and F, and groups a launch
+# (csrc/merkle_walk.cu: STARK_WALK_BLOCK_MAX, STARK_WALK_MAX_GROUPS).
+WALK_BLOCK = 64
+MAX_GROUPS = 32
 
 
 def _check_words(t: torch.Tensor, name: str, dev: torch.device) -> None:
@@ -89,6 +96,67 @@ def chain_levels_plain(h, witness_words, tree_index, levels: int):
     return _chain_plain(h, witness_words, tree_index, levels)
 
 
+def _launch(entry: str, name: str, descs: list, dev) -> None:
+    """The grouped walk `entry` over the descriptors, MAX_GROUPS a launch."""
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for k in range(0, len(descs), MAX_GROUPS):
+            part = descs[k:k + MAX_GROUPS]
+            rc = getattr(lib, entry)((_build.WalkGroup * len(part))(*part),
+                                     len(part), WALK_BLOCK, stream)
+            _build.check(rc, entry)
+            launches[name] += 1
+
+
+def _group(value, sibling, witness, tree_index, depth, out, vstride: int,
+           wit_stride: int, levels: int) -> "_build.WalkGroup":
+    return _build.WalkGroup(
+        value.data_ptr(), sibling.data_ptr(), witness.data_ptr(),
+        tree_index.data_ptr(), None if depth is None else depth.data_ptr(),
+        out.data_ptr(), vstride, wit_stride, out.numel() // 8,
+        value.shape[-1], levels, 0)
+
+
+def walk_leaf_levels_groups(groups: list) -> list:
+    """walk_leaf_levels over several groups in one launch of kernel A.
+
+    groups: (value, sibling, witness, tree_index, levels) tuples, each as
+    walk_leaf_levels takes them.  Returns one [..., 8] digest tensor a group.
+    On the CPU, the plain version group by group."""
+    if not groups:
+        return []
+    dev = groups[0][0].device
+    if dev.type == "cpu":
+        return [walk_leaf_levels_plain(*g) for g in groups]
+    descs, outs = [], []
+    for value_words, sibling_words, witness_words, tree_index, levels in groups:
+        lead = value_words.shape[:-1]
+        vw = value_words.shape[-1]
+        for t, name in ((value_words, "value"), (sibling_words, "sibling"),
+                        (witness_words, "witness"),
+                        (tree_index, "tree_index")):
+            _check_words(t, name, dev)
+        if vw not in (8, 24):
+            raise ValueError(f"value width {vw} words: the kernel takes 8 or 24")
+        if sibling_words.shape != value_words.shape or tree_index.shape != lead:
+            raise ValueError("value / sibling / tree_index shapes disagree")
+        if witness_words.shape[:-2] != lead:
+            raise ValueError("witness leading dims disagree with value")
+        stride = _witness_stride(witness_words, len(lead), levels)
+        out = torch.empty(lead + (8,), dtype=torch.int32, device=dev)
+        outs.append(out)
+        if out.numel():
+            descs.append(_group(
+                _dense(value_words, "value"), _dense(sibling_words, "sibling"),
+                witness_words, _dense(tree_index, "tree_index"), None, out,
+                vw, stride, levels))
+    if descs:
+        _launch("stark_walk_leaf_levels_groups", "walk_leaf_levels", descs,
+                dev)
+    return outs
+
+
 def walk_leaf_levels(value_words, sibling_words, witness_words, tree_index,
                      levels: int):
     """Leaf hash + the first `levels` witness levels of a RECTANGULAR group.
@@ -96,36 +164,10 @@ def walk_leaf_levels(value_words, sibling_words, witness_words, tree_index,
     value/sibling [..., vw] (vw = 8 or 24); witness_words [..., >=levels, 8];
     tree_index [...] the 2^(w+2)+permuted start index (int32, < 2^31).
     Returns the [..., 8] digests after `levels` halvings past the leaf (the
-    caller continues with ti >> (levels+1))."""
-    if value_words.device.type == "cpu":
-        return walk_leaf_levels_plain(value_words, sibling_words,
-                                      witness_words, tree_index, levels)
-    dev = value_words.device
-    lead = value_words.shape[:-1]
-    vw = value_words.shape[-1]
-    for t, name in ((value_words, "value"), (sibling_words, "sibling"),
-                    (witness_words, "witness"), (tree_index, "tree_index")):
-        _check_words(t, name, dev)
-    if vw not in (8, 24):
-        raise ValueError(f"value width {vw} words: the kernel takes 8 or 24")
-    if sibling_words.shape != value_words.shape or tree_index.shape != lead:
-        raise ValueError("value / sibling / tree_index shapes disagree")
-    if witness_words.shape[:-2] != lead:
-        raise ValueError("witness leading dims disagree with value")
-    stride = _witness_stride(witness_words, len(lead), levels)
-    out = torch.empty(lead + (8,), dtype=torch.int32, device=dev)
-    lib = _build.load()
-    with torch.cuda.device(dev):
-        rc = lib.stark_walk_leaf_levels(
-            _dense(value_words, "value").data_ptr(),
-            _dense(sibling_words, "sibling").data_ptr(),
-            witness_words.data_ptr(), stride,
-            _dense(tree_index, "tree_index").data_ptr(), out.data_ptr(),
-            vw, levels, out.numel() // 8,
-            torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(rc, "stark_walk_leaf_levels")
-    launches["walk_leaf_levels"] += 1
-    return out
+    caller continues with ti >> (levels+1)).  A one-group launch of
+    walk_leaf_levels_groups."""
+    return walk_leaf_levels_groups(
+        [(value_words, sibling_words, witness_words, tree_index, levels)])[0]
 
 
 def chain_levels(h, witness_words, tree_index, levels: int):
@@ -205,6 +247,50 @@ def _branch_rows(value_words, sibling_words, nlead: int):
     return value_words, sibling_words, vstride
 
 
+def walk_branches_groups(groups: list) -> list:
+    """walk_branches over several groups in one launch of kernel F.
+
+    groups: (value, sibling, witness, tree_index, depth) tuples, each as
+    walk_branches takes them (the value-size classes of a ragged group may
+    be groups of their own).  Returns one [..., 8] digest tensor a group.
+    On the CPU, the plain version group by group."""
+    if not groups:
+        return []
+    dev = groups[0][0].device
+    if dev.type == "cpu":
+        return [walk_branches_plain(*g) for g in groups]
+    descs, outs = [], []
+    for value_words, sibling_words, witness_words, tree_index, depth in groups:
+        lead = value_words.shape[:-1]
+        vw = value_words.shape[-1]
+        for t, name in ((value_words, "value"), (sibling_words, "sibling"),
+                        (witness_words, "witness"), (tree_index, "tree_index"),
+                        (depth, "depth")):
+            _check_words(t, name, dev)
+        if vw < 1:
+            raise ValueError("value width must be at least one word")
+        if (sibling_words.shape != value_words.shape
+                or tree_index.shape != lead or depth.shape != lead):
+            raise ValueError(
+                "value / sibling / tree_index / depth shapes disagree")
+        if witness_words.shape[:-2] != lead:
+            raise ValueError("witness leading dims disagree with value")
+        max_depth = witness_words.shape[-2]
+        stride = _witness_stride(witness_words, len(lead), max_depth)
+        value_words, sibling_words, vstride = _branch_rows(
+            value_words, sibling_words, len(lead))
+        out = torch.empty(lead + (8,), dtype=torch.int32, device=dev)
+        outs.append(out)
+        if out.numel():
+            descs.append(_group(
+                value_words, sibling_words, witness_words,
+                _dense(tree_index, "tree_index"), _dense(depth, "depth"), out,
+                vstride if lead else vw, stride, max_depth))
+    if descs:
+        _launch("stark_walk_branches_groups", "walk_branches", descs, dev)
+    return outs
+
+
 def walk_branches(value_words, sibling_words, witness_words, tree_index,
                   depth):
     """Leaf hash + each branch's OWN number of witness levels: the
@@ -215,38 +301,7 @@ def walk_branches(value_words, sibling_words, witness_words, tree_index,
     never read; tree_index [...] the 2^(depth+2)+permuted start index and
     depth [...] the branch's witness count, both int32 holding uint32 bit
     patterns.  A depth above max_depth walks max_depth levels.  Returns the
-    final [..., 8] digests (the caller compares them with the root)."""
-    if value_words.device.type == "cpu":
-        return walk_branches_plain(value_words, sibling_words, witness_words,
-                                   tree_index, depth)
-    dev = value_words.device
-    lead = value_words.shape[:-1]
-    vw = value_words.shape[-1]
-    for t, name in ((value_words, "value"), (sibling_words, "sibling"),
-                    (witness_words, "witness"), (tree_index, "tree_index"),
-                    (depth, "depth")):
-        _check_words(t, name, dev)
-    if vw < 1:
-        raise ValueError("value width must be at least one word")
-    if (sibling_words.shape != value_words.shape or tree_index.shape != lead
-            or depth.shape != lead):
-        raise ValueError("value / sibling / tree_index / depth shapes disagree")
-    if witness_words.shape[:-2] != lead:
-        raise ValueError("witness leading dims disagree with value")
-    max_depth = witness_words.shape[-2]
-    stride = _witness_stride(witness_words, len(lead), max_depth)
-    value_words, sibling_words, vstride = _branch_rows(
-        value_words, sibling_words, len(lead))
-    out = torch.empty(lead + (8,), dtype=torch.int32, device=dev)
-    lib = _build.load()
-    with torch.cuda.device(dev):
-        rc = lib.stark_walk_branches(
-            value_words.data_ptr(), sibling_words.data_ptr(),
-            vstride if lead else vw, vw,
-            witness_words.data_ptr(), stride,
-            _dense(tree_index, "tree_index").data_ptr(),
-            _dense(depth, "depth").data_ptr(), max_depth, out.data_ptr(),
-            out.numel() // 8, torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(rc, "stark_walk_branches")
-    launches["walk_branches"] += 1
-    return out
+    final [..., 8] digests (the caller compares them with the root).  A
+    one-group launch of walk_branches_groups."""
+    return walk_branches_groups(
+        [(value_words, sibling_words, witness_words, tree_index, depth)])[0]

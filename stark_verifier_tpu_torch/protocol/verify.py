@@ -42,11 +42,15 @@ from ..ops import ntt, prg, spot_cuda
 from ..proofio.device import resolve_device, to_tensor, tree_map
 
 
-def _verify_group(root_words, indices, group):
-    ok, _ = merkle.verify_branches(
-        root_words, indices, group["value"], group["sibling"],
-        group["witness"], group["depth"])
-    return ok.all(dim=-1)
+def _verify_groups(groups):
+    """Each group's verdict [...] from the independent walk of its branches:
+    groups are (root_words, indices, proof-tree group) triples, all walked
+    in one launch of kernel F."""
+    oks = merkle.verify_branches_groups([
+        dict(root=root, indices=indices, value=g["value"],
+             sibling=g["sibling"], witness=g["witness"], depth=g["depth"])
+        for root, indices, g in groups])
+    return [ok.all(dim=-1) for ok in oks]
 
 
 def _as_shared_group(root_words, indices, group):
@@ -127,7 +131,7 @@ def _fri_checks(l_root_words, fri, tables, cfg: StarkConfig,
     else:
         # every branch on its own to the root: the poly groups are 4q
         # independent branches here, not quads
-        oks = [_verify_group(g["root"], g["indices"], g) for g in groups]
+        oks = _verify_groups([(g["root"], g["indices"], g) for g in groups])
     ok_merkle = torch.stack(
         [oks[2 * l] & oks[2 * l + 1] for l in range(nlv)], dim=-1)  # [..., L]
 
@@ -285,9 +289,9 @@ def verify_mimc_proof(tree, inp, output_limbs, tables, cfg: StarkConfig,
             _as_shared_group(tree["l_merkle_root"], positions,
                              tree["lincomb"])]))
     else:
-        checks.append(_verify_group(mroot, augmented, tree["main"]))
-        checks.append(_verify_group(tree["l_merkle_root"], positions,
-                                    tree["lincomb"]))
+        checks.extend(_verify_groups([
+            (mroot, augmented, tree["main"]),
+            (tree["l_merkle_root"], positions, tree["lincomb"])]))
 
     # trace values: 96-byte leaves = P(x) || D(x) || B(x)  (main.rs:163-174)
     mv = tree["main"]["value"]                             # [..., 160, 24]

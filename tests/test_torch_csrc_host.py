@@ -58,6 +58,19 @@ def _start_index(n, depth):
     return _i32((1 << (depth + 2)) + idx // ld4 + 4 * (idx % ld4))
 
 
+def _group(val, sib, wit, ti, depth, out, vstride, wit_stride, levels):
+    """A descriptor of the grouped walks (kernel A when depth is None)."""
+    return _build.WalkGroup(
+        val.data_ptr(), sib.data_ptr(), wit.data_ptr(), ti.data_ptr(),
+        None if depth is None else depth.data_ptr(), out.data_ptr(),
+        vstride, wit_stride, out.numel() // 8, val.shape[-1], levels, 0)
+
+
+def _walk(fn, groups, block=64):
+    return fn((_build.WalkGroup * len(groups))(*groups), len(groups), block,
+              None)
+
+
 @pytest.mark.parametrize("vw,depth,levels", [(8, 4, 3), (8, 12, 12),
                                              (24, 12, 12), (24, 5, 0),
                                              (8, 4, 2)])
@@ -68,9 +81,8 @@ def test_host_walk_leaf_levels(hostlib, vw, depth, levels):
     wit = _words(rng, (n, depth, 8))
     ti = _start_index(n, depth)
     out = torch.empty((n, 8), dtype=torch.int32)
-    rc = hostlib.stark_walk_leaf_levels(
-        val.data_ptr(), sib.data_ptr(), wit.data_ptr(), depth * 8,
-        ti.data_ptr(), out.data_ptr(), vw, levels, n, None)
+    rc = _walk(hostlib.stark_walk_leaf_levels_groups,
+               [_group(val, sib, wit, ti, None, out, vw, depth * 8, levels)])
     assert rc == 0
     want = merkle_cuda.walk_leaf_levels_plain(val, sib, wit, ti, levels)
     np.testing.assert_array_equal(out.numpy(), want.numpy())
@@ -78,9 +90,90 @@ def test_host_walk_leaf_levels(hostlib, vw, depth, levels):
 
 def test_host_walk_rejects_bad_width(hostlib):
     z = torch.zeros(64, dtype=torch.int32)
-    assert hostlib.stark_walk_leaf_levels(
-        z.data_ptr(), z.data_ptr(), z.data_ptr(), 8, z.data_ptr(),
-        z.data_ptr(), 16, 1, 1, None) != 0
+    bad = _build.WalkGroup(z.data_ptr(), z.data_ptr(), z.data_ptr(),
+                           z.data_ptr(), None, z.data_ptr(), 16, 8, 1, 16, 1,
+                           0)
+    assert _walk(hostlib.stark_walk_leaf_levels_groups, [bad]) != 0
+
+
+def _mixed_groups(rng, depth_per_branch):
+    """Operands of four groups of one walk: widths 24, 8, 8 and (kernel F
+    only) 5, different level counts, one group of a single branch."""
+    specs = [(24, 7, 6), (8, 9, 4), (8, 1, 2)]
+    if depth_per_branch:
+        specs.append((5, 11, 3))
+    groups = []
+    for vw, n, depth in specs:
+        val, sib = _words(rng, (n, vw)), _words(rng, (n, vw))
+        wit = _words(rng, (n, depth, 8))
+        ti = _start_index(n, depth)
+        d = _i32((np.arange(n) % (depth + 2)).astype(np.uint32))
+        groups.append((val, sib, wit, ti, d if depth_per_branch else None,
+                       depth))
+    return groups
+
+
+@pytest.mark.parametrize("kernel", ["walk_leaf_levels", "walk_branches"])
+@pytest.mark.parametrize("block", [32, 256])
+def test_host_walk_groups(hostlib, kernel, block):
+    """Several groups in one call of the grouped entry point: each group's
+    digests equal its plain version's, whatever order the entry point walks
+    the groups in and however many blocks it gives each."""
+    f = kernel == "walk_branches"
+    rng = np.random.RandomState(17 + block)
+    groups = _mixed_groups(rng, f)
+    outs = [torch.full((val.shape[0], 8), 7, dtype=torch.int32)
+            for val, *_ in groups]
+    descs = [_group(val, sib, wit, ti, d, out, val.shape[-1], depth * 8,
+                    depth - (0 if f else 1))
+             for (val, sib, wit, ti, d, depth), out in zip(groups, outs)]
+    rc = _walk(getattr(hostlib, f"stark_{kernel}_groups"), descs, block)
+    assert rc == 0
+    for (val, sib, wit, ti, d, depth), out in zip(groups, outs):
+        want = (merkle_cuda.walk_branches_plain(val, sib, wit, ti, d) if f
+                else merkle_cuda.walk_leaf_levels_plain(val, sib, wit, ti,
+                                                        depth - 1))
+        np.testing.assert_array_equal(out.numpy(), want.numpy())
+
+
+@pytest.mark.parametrize("fault", [
+    "a_width", "f_width", "vstride", "levels", "value_alignment",
+    "witness_stride", "no_depth", "count", "block"])
+def test_host_walk_groups_reject_a_bad_table(hostlib, fault):
+    """One bad descriptor, a count above 32 or a bad block size: the entry
+    point returns 1 and writes nothing, not even the good groups' digests."""
+    f = fault not in ("a_width",)
+    rng = np.random.RandomState(3)
+    groups = _mixed_groups(rng, True)[:2]
+    outs = [torch.full((val.shape[0], 8), 7, dtype=torch.int32)
+            for val, *_ in groups]
+    descs = [_group(val, sib, wit, ti, d if f else None, out, val.shape[-1],
+                    depth * 8, depth)
+             for (val, sib, wit, ti, d, depth), out in zip(groups, outs)]
+    bad, block, count = descs[1], 64, len(descs)
+    if fault in ("a_width", "f_width"):
+        bad.vw = 16 if fault == "a_width" else 0
+    elif fault == "vstride":
+        bad.vstride = bad.vw - 1
+    elif fault == "levels":
+        bad.levels = -1
+    elif fault == "value_alignment":
+        bad.value += 4
+    elif fault == "witness_stride":
+        bad.wit_stride += 2
+    elif fault == "no_depth":
+        bad.depth = None
+    elif fault == "count":
+        descs = descs * 17
+        count = len(descs)
+    else:
+        block = 48
+    fn = hostlib.stark_walk_branches_groups if f else \
+        hostlib.stark_walk_leaf_levels_groups
+    table = (_build.WalkGroup * len(descs))(*descs)
+    assert fn(table, count, block, None) == 1
+    for out in outs:
+        assert (out == 7).all()
 
 
 @pytest.mark.parametrize("levels", [3, 11])
@@ -257,9 +350,9 @@ def test_host_walk_branches(hostlib, vw, max_depth):
     depth[7] = -1                                  # 0xFFFFFFFF: clamped
     ti = _words(rng, (n,))
     out = torch.empty((n, 8), dtype=torch.int32)
-    rc = hostlib.stark_walk_branches(
-        val.data_ptr(), sib.data_ptr(), vw, vw, wit.data_ptr(), max_depth * 8,
-        ti.data_ptr(), depth.data_ptr(), max_depth, out.data_ptr(), n, None)
+    rc = _walk(hostlib.stark_walk_branches_groups,
+               [_group(val, sib, wit, ti, depth, out, vw, max_depth * 8,
+                       max_depth)])
     assert rc == 0
     want = merkle_cuda.walk_branches_plain(val, sib, wit, ti, depth)
     np.testing.assert_array_equal(out.numpy(), want.numpy())
@@ -282,12 +375,9 @@ def test_host_walk_branches_column_slice_and_padded_witness(hostlib):
         merkle_cuda.walk_leaf_levels_plain(val[:, :8], sib[:, :8], wit, ti,
                                            depth).numpy())
     out = torch.empty((n, 8), dtype=torch.int32)
-    rc = hostlib.stark_walk_branches(
-        val.data_ptr(), sib.data_ptr(), 24, 8, padded.data_ptr(),
-        (depth + 1) * 8, ti.data_ptr(), d.data_ptr(), depth + 1,
-        out.data_ptr(), n, None)
-    assert rc == 0
+    group = _group(val[:, :8], sib[:, :8], padded, ti, d, out, 24,
+                   (depth + 1) * 8, depth + 1)
+    assert _walk(hostlib.stark_walk_branches_groups, [group]) == 0
     np.testing.assert_array_equal(out.numpy(), want.numpy())
-    assert hostlib.stark_walk_branches(
-        val.data_ptr(), sib.data_ptr(), 4, 8, padded.data_ptr(), 32,
-        ti.data_ptr(), d.data_ptr(), 4, out.data_ptr(), n, None) != 0
+    group.vstride = 4
+    assert _walk(hostlib.stark_walk_branches_groups, [group]) != 0

@@ -184,21 +184,23 @@ def padded_batch(ref_batch):
 @pytest.fixture(scope="module")
 def unshared_groups(padded_batch):
     """The unshared verifier's verdicts on the padded batch, and the operands
-    and result of every verify_branches call it made."""
+    and result of every group its verify_branches_groups calls walked."""
     calls = []
-    real = M.verify_branches
+    real = M.verify_branches_groups
+    names = ("root", "indices", "value", "sibling", "witness", "depth")
 
-    def recording(*args, **kwargs):
-        out = real(*args, **kwargs)
-        calls.append((args, out[0]))
+    def recording(groups):
+        out = real(groups)
+        calls.extend((tuple(g[k] for k in names), ok)
+                     for g, ok in zip(groups, out))
         return out
 
     fn, _ = V.make_verifier(CFG, 3, shared_merkle=False, device="cpu")
-    M.verify_branches = recording
+    M.verify_branches_groups = recording
     try:
         verdicts = fn(device.tree_from_reference(padded_batch, "cpu"))
     finally:
-        M.verify_branches = real
+        M.verify_branches_groups = real
     assert len(calls) == len(GROUPS)
     return verdicts, dict(zip(GROUPS, calls))
 
