@@ -13,8 +13,12 @@ the CPU):
 
   1. device   -- the card's name and power limit;
   2. build    -- nvcc builds the six kernels from stark_verifier_tpu_torch/csrc;
+                 the instruction counts of the bounds are read again from
+                 the library's SASS (stark_verifier_tpu_torch/sass.py);
   3. kernels  -- each kernel against its plain PyTorch version on the card,
-                 bit-exact, at the shapes its path gives it, with the
+                 bit-exact, at the shapes its path gives it (the Merkle walks
+                 A and F also with all groups of a call site in one launch,
+                 as the path runs them, at four block sizes), with the
                  wrapper's time (CUDA events around Python calls) and its
                  device time (calls replayed from a CUDA graph) beside the
                  least time the card could take;
@@ -24,11 +28,11 @@ the CPU):
                  chunks of 512 through make_chunked_verifier on the card;
                  verdicts must be exactly right, equal the CPU path's on the
                  first 16, and the shared-path kernels must have been
-                 launched; then verify_proof_bytes on good / trailing /
-                 truncated / flipped blobs;
+                 launched (kernel A twice a chunk); then verify_proof_bytes
+                 on good / trailing / truncated / flipped blobs;
   6. unshared path -- the same batch with shared_merkle=False: every branch
-                 walks to the root on its own in the independent-walk kernel;
-                 verdicts equal the main path's.  Then a ragged batch (witness
+                 walks to the root on its own in the independent-walk kernel
+                 (twice a chunk); verdicts equal the main path's.  Then a ragged batch (witness
                  arrays one zero level deeper than the depths, one proof with
                  a short depth) routed by is_rectangular, and
                  verify_proof_bytes on a ragged blob the oracle rejects;
@@ -113,13 +117,13 @@ ALU_PER_S = 67e12 / 4
 #     and feed-forward, ALU pipe only) and its adds, as the level loop of the
 #     walks issues them (the row's loads, the 16 message selects and the
 #     loop's control left out, so that a leaf's compressions count the
-#     same).  PR 2's code issued 321 adds (156 IADD3 on the ALU pipe, 156
-#     IMAD.IADD and 9 VIADD on the FMA pipe); blake2s.cuh now issues each
-#     three-input add as two IMADs: 480 adds on the FMA pipe.
+#     same).  Left to ptxas, the adds were 321 (156 IADD3 on the ALU pipe,
+#     156 IMAD.IADD and 9 VIADD on the FMA pipe); blake2s.cuh issues each
+#     three-input add as two IMADs: 481 adds, all on the FMA pipe.
 #   kernels C, D and E: the whole common path of one thread (sass.path):
 #     canonicalizations, products, reductions, limb packing, loads and
 #     stores; C redoes special_x's canonicalization and square per thread.
-OPS_COMPRESS = (650 + 480, 650)
+OPS_COMPRESS = (650 + 481, 650)
 OPS_ROW = (4209, 276)                   # kernel C, a row group
 OPS_SPOT = {3: (4761, 347), 2: (4309, 342)}   # kernel D, a position
 OPS_MUL = (532, 75)                     # kernel E, an element
@@ -548,7 +552,7 @@ def kernel_phase(cfg, tables):
     dm = cfg.log_steps + 2               # witness depth of the main trees: 15
     # kernel A: the groups of the shared walk's two call sites, each site in
     # one launch (main + lincomb; the five FRI column groups), then each
-    # group alone (one launch each, PR 2's shapes).  The level count is the
+    # group alone (one launch each).  The level count is the
     # one the shared walk gives a group (ops/merkle.py: depth minus the
     # dense tail, one level for the leaf).
     sp, q, nl = cfg.spot_checks, cfg.fri_queries, cfg.fri_levels
@@ -1046,12 +1050,9 @@ def main():
     log(f"python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
 
-    defines = [a.split("=", 1)[1] for a in sys.argv if a.startswith("--define=")]
-    _build.NVCC_FLAGS.extend("-D" + d for d in defines)
     _build.load()
     log(f"build: {_build.build_seconds():.1f} s "
-        f"({len(_build.sources())} sources, nvcc sm_90a"
-        + "".join(f", -D{d}" for d in defines) + ")")
+        f"({len(_build.sources())} sources, nvcc sm_90a)")
     for line in _build.build_log().splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log("  ptxas: " + line.strip())
@@ -1076,10 +1077,6 @@ def main():
                    if "block_sweep" in c else ""))
         if not k["match"]:
             fail(f"kernel {k['name']} disagrees with its plain version")
-    if "--kernels-only" in sys.argv:
-        log(smi)
-        log(json.dumps({"kernels": kernels}))
-        return
 
     t0 = time.perf_counter()
     blob = golden_proof(cfg)

@@ -7,21 +7,22 @@
 // the ten rounds are unrolled with the message schedule as literals, and a
 // rotate is one funnel shift (12, 7) or one byte permute (16, 8).
 //
-// What bounds it on an H100: the integer ALU pipe.  A G function is 4 xors
-// and 4 rotates, which only the ALU pipe runs (LOP3, PRMT, SHF: 16 lanes on
-// each of an SM's 4 sub-partitions), and 4 adds, which the FMA pipe can take
-// as multiply-adds (IMAD, 16 lanes a sub-partition too).  Left to itself,
-// ptxas emits the two-input adds (c + d) as IMAD.IADD but the three-input
-// ones (a + b + x) as IADD3 on the ALU pipe: the SASS of a walk level held
-// 650 ALU-only instructions (329 LOP3, 160 PRMT, 161 SHF) and 156 IADD3 on
-// the ALU pipe against 165 adds on the FMA pipe.  Here every add of G is an
-// explicit multiply-add by a 1 the compiler cannot fold (b2s_one, a
-// __constant__), so the ALU pipe carries only the xors, rotates and selects:
-// 650 instructions a compression, the least any code with one LOP3 per xor
-// and one PRMT or SHF per rotate can issue there.  The FMA pipe then carries
-// the 480 adds, 2 for each three-input one, and stays below the ALU pipe.
-// chip_smoke.py counts both from the SASS (stark_verifier_tpu_torch/sass.py)
-// and bounds the walks by the ALU pipe.
+// What bounds it on an H100: the integer ALU pipe, by instruction count.  A
+// G function is 4 xors and 4 rotates, which only the ALU pipe runs (LOP3,
+// PRMT, SHF: 16 lanes on each of an SM's 4 sub-partitions), and 4 adds, which
+// the FMA pipe can take as multiply-adds (IMAD, 16 lanes a sub-partition
+// too).  Left to itself, ptxas emits the two-input adds (c + d) as IMAD.IADD
+// but the three-input ones (a + b + x) as IADD3 on the ALU pipe: a walk level
+// held 670 ALU-only instructions (650 LOP3, PRMT and SHF, 16 SEL, 4 of the
+// loop) and 156 IADD3 on the ALU pipe, against 165 adds on the FMA pipe.
+// Here every add of G is a multiply-add by a 1 the compiler cannot fold
+// (b2s_one), so the ALU pipe carries 668 ALU-only instructions a level and
+// nothing else, and the FMA pipe 483 (481 adds, 2 for each three-input one).  chip_smoke.py reads these counts from
+// the SASS (stark_verifier_tpu_torch/sass.py) and bounds the walks by the
+// ALU pipe.  On an H100 80GB HBM3 at 700 W the 160-branch walks ran about 5 %
+// faster for it, not the 1.23x that 826 -> 668 ALU-pipe instructions would
+// give: they stay at 1.4x to 1.5x of that bound, held by something the count
+// does not see.
 #pragma once
 #include "common.cuh"
 

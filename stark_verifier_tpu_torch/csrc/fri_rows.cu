@@ -16,12 +16,13 @@
 // per (proof, level) ahead of its kernel; here one more multiply per thread
 // is cheaper than a separate pass of small launches.
 //
-// Bound on an H100: bytes, narrowly.  A row group moves about 290 bytes (128
-// of rows, two 64-byte gathers, 32 out, a shared 64-byte operand) and does
-// eight 256-bit multiplies with their reductions, about 1,700 integer
-// instructions: 6 per byte, under the card's ratio of 10 between the
-// instructions it can issue and the bytes it can move, so the 64-byte limb
-// rows (16 bits of value per 32-bit word) cost more than the arithmetic.
+// Bound on an H100: instruction issue, narrowly.  A row group moves about 290
+// bytes (128 of rows, two 64-byte gathers, 32 out, a shared 64-byte operand)
+// and its thread issues 4,209 instructions (the SASS of its common path,
+// counted by stark_verifier_tpu_torch/sass.py; the eight 256-bit multiplies
+// with their reductions and carries, 276 of them ALU-only): 14.5 per byte,
+// above the card's 10 (33.5 T instructions a second over 3.35 TB/s).  The
+// 64-byte limb rows (16 bits of value per 32-bit word) come close behind.
 #include "field256.cuh"
 
 struct stark_row_consts {

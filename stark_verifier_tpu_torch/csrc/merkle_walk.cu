@@ -32,14 +32,13 @@
 // What bounds them on an H100: the integer ALU pipe.  A level moves 32 bytes
 // and hashes them with one compression, whose xors and rotates only the ALU
 // pipe runs (blake2s.cuh: 650 of them a compression in the SASS, 64 lanes an
-// SM); the adds go to the FMA pipe.  Each level's witness row is loaded while
-// the level before it is hashed (STARK_WALK_PREFETCH), and the first row and
-// the leaf's rows before the leaf is hashed, so no level waits on a load.
+// SM); the adds go to the FMA pipe.  At the verifier's shapes (512 proofs,
+// the groups of a call site in one launch) they run at 1.3x to 1.7x of that
+// bound on an H100 80GB HBM3 at 700 W.  A thread loads a level's witness row
+// as the level starts: loading it a level ahead in registers did not pay
+// there (the grouped walks within 2 %, kernel B 20 % slower).
 #include "blake2s.cuh"
 
-#ifndef STARK_WALK_PREFETCH
-#define STARK_WALK_PREFETCH 1
-#endif
 #define STARK_WALK_MAX_GROUPS 32
 #define STARK_WALK_BLOCK_MAX 256
 
@@ -73,8 +72,7 @@ struct stark_walk_table {
 // Leaf pair-hash of one branch: Blake2s(first || second) with
 // (first, second) = (sibling, value) when the tree index is odd, else
 // (value, sibling).  VW words per value: 8 (one 64-byte block) or 24 (192
-// bytes = three blocks; counter 64 / 128 / 192, final flag on the third; a
-// block's words are loaded before the block ahead of it is hashed).
+// bytes = three blocks; counter 64 / 128 / 192, final flag on the third).
 template <int VW>
 STARK_HD void stark_leaf_hash(const uint32_t* val, const uint32_t* sib,
                               bool odd, uint32_t* h) {
@@ -87,15 +85,14 @@ STARK_HD void stark_leaf_hash(const uint32_t* val, const uint32_t* sib,
     stark_ld8(second, m + 8);
     b2s_compress(h, m, 64u, true);
   } else {
-    uint32_t m2[16];
     stark_ld8(first, m);
     stark_ld8(first + 8, m + 8);
-    stark_ld8(first + 16, m2);
-    stark_ld8(second, m2 + 8);
     b2s_compress(h, m, 64u, false);
+    stark_ld8(first + 16, m);
+    stark_ld8(second, m + 8);
+    b2s_compress(h, m, 128u, false);
     stark_ld8(second + 8, m);
     stark_ld8(second + 16, m + 8);
-    b2s_compress(h, m2, 128u, false);
     b2s_compress(h, m, 192u, true);
   }
 }
@@ -123,34 +120,15 @@ STARK_HD void stark_leaf_hash_any(const uint32_t* val, const uint32_t* sib,
   }
 }
 
-// Row 0 of a branch's witness into w, ahead of the leaf hash (zeros when the
-// branch walks no level, or when prefetching is off).
-STARK_HD void stark_first_row(const uint32_t* wit, int levels, uint32_t* w) {
-  if (STARK_WALK_PREFETCH && levels > 0) {
-    stark_ld8(wit, w);
-  } else {
-    for (int j = 0; j < 8; ++j) w[j] = 0u;
-  }
-}
-
 // `levels` witness levels from digest h and CURRENT index ti; the branch's
-// witness rows start at wit (8 words a level, consecutive) and w holds row 0
-// (stark_first_row).  Row k + 1 is loaded before level k is hashed (the last
-// level loads its own row again, which stays in bounds and costs no branch).
-STARK_HD void stark_chain(uint32_t* h, const uint32_t* wit, uint32_t* w,
-                          uint32_t ti, int levels) {
+// witness rows start at wit (8 words a level, consecutive).
+STARK_HD void stark_chain(uint32_t* h, const uint32_t* wit, uint32_t ti,
+                          int levels) {
   for (int k = 0; k < levels; ++k) {
-#if STARK_WALK_PREFETCH
-    uint32_t next[8];
-    stark_ld8(wit + 8 * (long long)(k + 1 < levels ? k + 1 : k), next);
-#else
+    uint32_t w[8];
     stark_ld8(wit + 8 * (long long)k, w);
-#endif
     b2s_merkle_level(h, w, (ti & 1u) != 0u);
     ti >>= 1;
-#if STARK_WALK_PREFETCH
-    for (int j = 0; j < 8; ++j) w[j] = next[j];
-#endif
   }
 }
 
@@ -163,17 +141,15 @@ STARK_HD void stark_walk_one(const stark_walk_group& g, long long i) {
   if (DEPTH && g.depth[i] < (uint32_t)levels) levels = (int)g.depth[i];
   const uint32_t* v = g.value + i * g.vstride;
   const uint32_t* s = g.sibling + i * g.vstride;
-  const uint32_t* wit = g.witness + i * g.wit_stride;
   const bool odd = (ti & 1u) != 0u;
-  uint32_t h[8], w[8];
-  stark_first_row(wit, levels, w);
+  uint32_t h[8];
   if (g.vw == 8)
     stark_leaf_hash<8>(v, s, odd, h);
   else if (g.vw == 24 || !DEPTH)
     stark_leaf_hash<24>(v, s, odd, h);
   else
     stark_leaf_hash_any(v, s, g.vw, odd, h);
-  stark_chain(h, wit, w, ti >> 1, levels);
+  stark_chain(h, g.witness + i * g.wit_stride, ti >> 1, levels);
   stark_st8(g.out + i * 8, h);
 }
 
@@ -181,11 +157,9 @@ STARK_HD void stark_chain_one(long long i, const uint32_t* h_in,
                               const uint32_t* witness, long long wit_stride,
                               const uint32_t* tidx, uint32_t* out,
                               int levels) {
-  uint32_t h[8], w[8];
-  const uint32_t* wit = witness + i * wit_stride;
-  stark_first_row(wit, levels, w);
+  uint32_t h[8];
   stark_ld8(h_in + i * 8, h);
-  stark_chain(h, wit, w, tidx[i], levels);
+  stark_chain(h, witness + i * wit_stride, tidx[i], levels);
   stark_st8(out + i * 8, h);
 }
 

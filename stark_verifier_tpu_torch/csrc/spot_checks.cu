@@ -16,12 +16,13 @@
 //
 // One thread per position, all values in registers.  Bound on an H100: bytes.
 // A position reads 640 bytes of its own (ten values as 16-bit limbs in 32-bit
-// words, 64 bytes each) plus 384 shared per proof, and does eleven 256-bit
-// multiplies and six reductions, about 1,900 integer instructions: 3 per
-// byte, under the card's ratio of 10 between the instructions it can issue
-// and the bytes it can move.  Packing the operands to 8 words a value would
-// halve the traffic; the layout is kept equal to the TPU package's public
-// one for now so that the two compare array for array.
+// words, 64 bytes each) plus 384 shared per proof, and issues 4,761
+// instructions for power 3 and 4,309 for power 2 (the SASS of its common
+// path, counted by stark_verifier_tpu_torch/sass.py): 7 per byte, under the
+// card's 10 (33.5 T instructions a second over 3.35 TB/s).  Packing the
+// operands to 8 words a value would halve the traffic; the layout is kept
+// equal to the TPU package's public one for now so that the two compare
+// array for array.
 #include "field256.cuh"
 
 template <int POWER>

@@ -12,15 +12,16 @@ This module sorts each instruction by the pipe that can run it on Hopper:
   other     moves, branches, stores, uniform-datapath and special registers.
 
 and counts them over a loop body (the code between a backward branch and its
-target) or over a whole kernel.  chip_smoke.py takes its bounds' instruction
-counts from here.  Run on a machine with the CUDA toolkit:
+target) or over the path a thread takes through a kernel without loops.
+chip_smoke.py takes its bounds' instruction counts from here.  Run on a
+machine with the CUDA toolkit:
 
     python3 -m stark_verifier_tpu_torch.sass          # builds if needed
 
-prints one JSON object: for every kernel, the per-class counts of the whole
-function, of its common path, and of each loop, and for
-the Merkle kernels those of one compression of the level loop (a loop body
-holds one compression when its PRMT count, 2 a G function, is 160).
+prints one JSON object: for every kernel, the per-class counts of its common
+path, and for the Merkle kernels those of one compression of the level loop
+(a loop body holds one compression when its PRMT count, 2 a G function, is
+160).
 """
 
 from __future__ import annotations
@@ -147,16 +148,11 @@ def dump(lib_path: str) -> str:
 
 
 def report(lib_path: str) -> dict:
-    """Per kernel (mangled name): the counts of the whole function, of its
-    common path (path), of each loop body, and of one compression where the
-    kernel hashes."""
-    rep = {}
-    for name, insns in parse(dump(lib_path)).items():
-        rep[name] = {"function": counts(insns),
-                     "path": counts(path(insns)),
-                     "loops": [counts(b) for b in loops(insns)],
-                     "compression": per_compression(insns)}
-    return rep
+    """Per kernel (mangled name): the counts of its common path, and of one
+    compression where the kernel hashes (else None)."""
+    return {name: {"path": counts(path(insns)),
+                   "compression": per_compression(insns)}
+            for name, insns in parse(dump(lib_path)).items()}
 
 
 def main():

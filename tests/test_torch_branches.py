@@ -39,12 +39,12 @@ def _bwords(b: bytes) -> np.ndarray:
     return np.frombuffer(b, dtype="<u4").astype(np.uint32)
 
 
-def test_walk_branches_vs_pallas_interpret(monkeypatch):
-    """Mixed depths 1..max_depth per lane, 32-byte leaves (96-byte leaves in
-    interpret mode take many minutes; they are held against the JAX
+@pytest.fixture(scope="module")
+def pallas_walk():
+    """Operands of a group with mixed depths 1..max_depth per lane and
+    32-byte leaves, and the Pallas kernel's digests in interpret mode (96-byte
+    leaves there take many minutes; they are held against the JAX
     verify_branches and the oracle below)."""
-    # 1x128 tiles exercise the same kernel logic as the full tiles
-    monkeypatch.setattr(merkle_pallas, "SUB_TILE", 1)
     rng = np.random.RandomState(0)
     n, max_depth = 8, 3
     val, sib = _words(rng, (n, 8)), _words(rng, (n, 8))
@@ -54,12 +54,42 @@ def test_walk_branches_vs_pallas_interpret(monkeypatch):
     ld4 = np.uint32(1) << (dp - 1)
     ti = ((np.uint32(1) << (dp + 2)) + idx // ld4 + 4 * (idx % ld4)
           ).astype(np.uint32)
-    want = np.asarray(merkle_pallas.walk_branches(
-        jnp.asarray(val), jnp.asarray(sib), jnp.asarray(wit), jnp.asarray(ti),
-        jnp.asarray(dp), interpret=True))
-    got = merkle_cuda.walk_branches(_t(val), _t(sib), _t(wit), _t(ti), _t(dp))
+    with pytest.MonkeyPatch.context() as mp:
+        # 1x128 tiles exercise the same kernel logic as the full tiles
+        mp.setattr(merkle_pallas, "SUB_TILE", 1)
+        want = np.asarray(merkle_pallas.walk_branches(
+            jnp.asarray(val), jnp.asarray(sib), jnp.asarray(wit),
+            jnp.asarray(ti), jnp.asarray(dp), interpret=True))
+    return (val, sib, wit, ti, dp), want
+
+
+def test_walk_branches_vs_pallas_interpret(pallas_walk):
+    args, want = pallas_walk
+    got = merkle_cuda.walk_branches(*map(_t, args))
     np.testing.assert_array_equal(_n(got), want)
     assert merkle_cuda.launches["walk_branches"] == 0
+
+
+def test_walk_branches_groups_equal_the_walk_of_each_group(pallas_walk):
+    """The Pallas-checked group beside groups of 24 and 5 words a value (the
+    last a ragged size) with depths per branch up to and past their witness
+    rows, and a group of one branch, in one call: each group's digests equal
+    its own walk_branches, the first also the Pallas kernel's."""
+    rng = np.random.RandomState(7)
+    groups = [pallas_walk[0]]
+    for n, vw, max_depth in ((4, 24, 3), (6, 5, 5), (1, 8, 2)):
+        depth = ((np.arange(n) % (max_depth + 1)) + 1).astype(np.uint32)
+        groups.append((_words(rng, (n, vw)), _words(rng, (n, vw)),
+                       _words(rng, (n, max_depth, 8)), _words(rng, (n,)),
+                       depth))
+    got = merkle_cuda.walk_branches_groups(
+        [tuple(map(_t, g)) for g in groups])
+    assert len(got) == len(groups)
+    for g, out in zip(groups, got):
+        np.testing.assert_array_equal(
+            out.numpy(), merkle_cuda.walk_branches(*map(_t, g)).numpy())
+    np.testing.assert_array_equal(_n(got[0]), pallas_walk[1])
+    assert merkle_cuda.walk_branches_groups([]) == []
 
 
 def test_walk_branches_equals_the_static_walk_at_uniform_depth():
@@ -169,6 +199,42 @@ def test_ragged_group_tampered_value_rejects_its_branch_only(ragged, k):
     with pytest.raises(AssertionError):
         oracle.verify_branch(ragged["roots"][k].tobytes(),
                              int(ragged["indices"][k]), tampered)
+
+
+def test_verify_branches_groups_equal_one_call_a_group(ragged):
+    """The ragged group (its value-size classes walked as groups of the
+    same launch), the same group with one value flipped and a rectangular
+    group, in one call: the verdicts of one verify_branches call a group
+    (held against the JAX package's by the tests around this one)."""
+    g = ragged["g"]
+    bad = g.value_words.copy()
+    bad[2, 0] ^= 1
+    rng = np.random.RandomState(8)
+    rect = {"root": _words(rng, (8,)), "indices": np.arange(5, dtype=np.uint32),
+            "value": _words(rng, (5, 8)), "sibling": _words(rng, (5, 8)),
+            "witness": _words(rng, (5, 3, 8)), "depth": 3}
+    rect["root"] = _n(merkle_cuda.walk_branches(
+        _t(rect["value"][1]), _t(rect["sibling"][1]), _t(rect["witness"][1]),
+        torch.tensor(32 + 1 // 4 + 4 * (1 % 4), dtype=torch.int32),
+        torch.tensor(3, dtype=torch.int32)))
+    groups = [dict(root=ragged["roots"], indices=ragged["indices"], value=v,
+                   sibling=g.sibling_words, witness=g.witness_words,
+                   depth=g.depths, vsizes=g.vsizes,
+                   vsize_classes=g.vsize_classes)
+              for v in (g.value_words, bad)] + [rect]
+    def port(grp):
+        return {k: _t(v) if isinstance(v, np.ndarray) else v
+                for k, v in grp.items()}
+
+    got = M.verify_branches_groups([port(grp) for grp in groups])
+    names = ("root", "indices", "value", "sibling", "witness", "depth")
+    for grp, ok in zip(groups, got):
+        one, _ = M.verify_branches(*map(port(grp).get, names),
+                                   vsizes=port(grp).get("vsizes"),
+                                   vsize_classes=grp.get("vsize_classes"))
+        np.testing.assert_array_equal(ok.numpy(), one.numpy())
+    assert got[0].all() and got[1].tolist() == [True, True, False, True]
+    assert got[2].tolist() == [False, True, False, False, False]
 
 
 def test_ragged_group_short_depth_rejects_its_branch_only(ragged):

@@ -76,20 +76,45 @@ def test_walk_leaf_levels_vs_pallas_interpret(levels):
     np.testing.assert_array_equal(_n(got), want)
 
 
-def test_walk_leaf_levels_vw24_vs_jax_plain():
-    """96-byte leaves (three compressions): against the JAX plain reference,
-    since interpret mode takes many minutes to trace them."""
+@pytest.fixture(scope="module")
+def vw24_walk():
+    """Operands of a group of 96-byte leaves (three compressions) and the
+    JAX plain reference's digests (interpret mode takes many minutes to trace
+    them)."""
     rng = np.random.RandomState(2)
     n, depth, levels = 8, 5, 4
-    val, sib = _words(rng, (n, 24)), _words(rng, (n, 24))
-    wit = _words(rng, (n, depth, 8))
-    ti = _start(n, depth)
-    want = np.asarray(_jax_plain_walk(
-        jnp.asarray(val), jnp.asarray(sib), jnp.asarray(wit), jnp.asarray(ti),
-        levels))
+    args = (_words(rng, (n, 24)), _words(rng, (n, 24)),
+            _words(rng, (n, depth, 8)), _start(n, depth))
+    return args + (levels,), np.asarray(_jax_plain_walk(
+        *map(jnp.asarray, args), levels))
+
+
+def test_walk_leaf_levels_vw24_vs_jax_plain(vw24_walk):
+    (val, sib, wit, ti, levels), want = vw24_walk
     got = merkle_cuda.walk_leaf_levels(_t(val), _t(sib), _t(wit), _t(ti),
                                        levels)
     np.testing.assert_array_equal(_n(got), want)
+
+
+def test_walk_leaf_levels_groups_equal_the_walk_of_each_group(vw24_walk):
+    """The JAX-checked 96-byte group beside groups of 32-byte leaves with
+    other level counts, one of a single branch, in one call: each group's
+    digests equal its own walk_leaf_levels, the first also the JAX
+    reference's."""
+    rng = np.random.RandomState(6)
+    groups = [vw24_walk[0]]
+    for n, depth, levels in ((8, 4, 3), (1, 6, 6)):
+        groups.append((_words(rng, (n, 8)), _words(rng, (n, 8)),
+                       _words(rng, (n, depth, 8)), _start(n, depth), levels))
+    got = merkle_cuda.walk_leaf_levels_groups(
+        [tuple(map(_t, g[:4])) + (g[4],) for g in groups])
+    assert len(got) == len(groups)
+    for (val, sib, wit, ti, levels), out in zip(groups, got):
+        np.testing.assert_array_equal(
+            out.numpy(), merkle_cuda.walk_leaf_levels(
+                _t(val), _t(sib), _t(wit), _t(ti), levels).numpy())
+    np.testing.assert_array_equal(_n(got[0]), vw24_walk[1])
+    assert merkle_cuda.walk_leaf_levels_groups([]) == []
 
 
 def test_chain_levels_vs_pallas_interpret():
