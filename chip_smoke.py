@@ -107,7 +107,7 @@ KERNEL_MODULES = (merkle_cuda, fri_cuda, spot_cuda, field_cuda)
 # (ALU-only instructions / ALU rate), so it holds whichever pipe the code
 # sends its adds to.
 MEM_BYTES_PER_S = 3.35e12
-ISSUE_PER_S = 67e12 / 2
+INSTR_PER_S = 67e12 / 2
 ALU_PER_S = 67e12 / 4
 
 # Instructions per unit of work, (all, ALU-only), from the SASS of the
@@ -209,7 +209,7 @@ def bound(bytes_moved, units, ops):
     """(least ms, "bytes" or "operations", the three times) for `units` of
     work of `ops` = (all, ALU-only) instructions each."""
     parts = {"bytes_ms": bytes_moved / MEM_BYTES_PER_S * 1e3,
-             "issue_ms": units * ops[0] / ISSUE_PER_S * 1e3,
+             "instr_ms": units * ops[0] / INSTR_PER_S * 1e3,
              "alu_ms": units * ops[1] / ALU_PER_S * 1e3}
     ms = max(parts.values())
     return ms, ("bytes" if ms == parts["bytes_ms"] else "operations"), parts
@@ -1074,8 +1074,9 @@ def main():
                 f"{c['max_abs_err']}, wrapper {c['ms']:.4f} ms, device "
                 f"{c['device_ms']:.4f} ms, plain "
                 f"{c['plain_ms']:.2f} ms, bound {c['bound_ms']:.4f} ms "
-                f"({c['bound_by']}; bytes {c['bytes_ms']:.4f}, issue "
-                f"{c['issue_ms']:.4f}, ALU pipe {c['alu_ms']:.4f})"
+                f"({c['bound_by']}; bytes {c['bytes_ms']:.4f}, all "
+                f"instructions {c['instr_ms']:.4f}, ALU pipe "
+                f"{c['alu_ms']:.4f})"
                 + (f", device ms by block size {c['block_sweep']}"
                    if "block_sweep" in c else ""))
         if not k["match"]:
