@@ -13,15 +13,16 @@ the CPU):
 
   1. device   -- the card's name and power limit;
   2. build    -- nvcc builds the six kernels from stark_verifier_tpu_torch/csrc;
-                 the instruction counts of the bounds are read again from
-                 the library's SASS (stark_verifier_tpu_torch/sass.py);
+                 the instruction counts of the bounds are read from this
+                 build's SASS (stark_verifier_tpu_torch/sass.py: cuobjdump
+                 of the library and of csrc/probes/work.cu);
   3. kernels  -- each kernel against its plain PyTorch version on the card,
                  bit-exact, at the shapes its path gives it (the Merkle walks
                  A and F also with all groups of a call site in one launch,
-                 as the path runs them, at four block sizes), with the
-                 wrapper's time (CUDA events around Python calls) and its
-                 device time (calls replayed from a CUDA graph) beside the
-                 least time the card could take;
+                 as the path runs them), with the wrapper's time (CUDA events
+                 around Python calls) and its device time (calls replayed
+                 from a CUDA graph) beside the least time the card could
+                 take;
   4. golden   -- a full-size MiMC-STARK proof (2^13 steps) is generated with
                  the pure-Python prover and accepted by the pure-Python oracle;
   5. main path -- 1,024 proofs (12 of them tampered, one per protocol site) in
@@ -110,32 +111,23 @@ MEM_BYTES_PER_S = 3.35e12
 INSTR_PER_S = 67e12 / 2
 ALU_PER_S = 67e12 / 4
 
-# Instructions per unit of work, (all, ALU-only), from the SASS of the
-# kernels as built here (stark_verifier_tpu_torch/sass.py; the build phase
-# reads them again and says if they moved):
-#   one Blake2s compression: its LOP3, PRMT and SHF (650: the xors, rotates
-#     and feed-forward, ALU pipe only) and its adds, as the level loop of the
-#     walks issues them (the row's loads, the 16 message selects and the
-#     loop's control left out, so that a leaf's compressions count the
-#     same).  Left to ptxas, the adds were 321 (156 IADD3 on the ALU pipe,
-#     156 IMAD.IADD and 9 VIADD on the FMA pipe); blake2s.cuh issues each
-#     three-input add as two IMADs: 480 adds in A and B, 481 in F, all on
-#     the FMA pipe (the bound takes the fewer).
-#   kernels C, D and E: the whole common path of one thread (sass.path):
-#     canonicalizations, products, reductions, limb packing, loads and
-#     stores; C redoes special_x's canonicalization and square per thread.
-OPS_COMPRESS = (650 + 480, 650)
-OPS_ROW = (4209, 276)                   # kernel C, a row group
-OPS_SPOT = {3: (4761, 347), 2: (4309, 342)}   # kernel D, a position
-OPS_MUL = (532, 75)                     # kernel E, an element
-# the SASS functions these are read from (sass.report's keys)
-# (a part of each mangled name, as sass.report keys them)
-SASS_COMPRESS = ("stark_walk_groups_kernelILb0", "stark_walk_groups_kernelILb1",
-                 "stark_chain_kernel")
-SASS_PATH = {"stark_eval4_kernel": OPS_ROW,
-             "stark_spot_kernelILi3": OPS_SPOT[3],
-             "stark_spot_kernelILi2": OPS_SPOT[2],
-             "stark_mul_mod_kernel": OPS_MUL}
+# Where the instructions a unit of work needs, (all, ALU-only), are read
+# from this build's SASS (stark_verifier_tpu_torch/sass.py):
+#   a Blake2s compression of kernels A, B and F: the level loop of the
+#     kernel (part of its mangled name here), its LOP3, PRMT and SHF (the
+#     xors, rotates and feed-forward, ALU pipe only) and its adds; the row's
+#     loads, the message selects and the loop's control are left out, so
+#     that a leaf's compressions count the same;
+#   kernels C, D and E: the probes of csrc/probes/work.cu, the products,
+#     reductions, adds and compares of a unit of the function, with no
+#     loads, stores, moves or limb packing; C's special_x is canonicalized
+#     and squared once per (proof, level), as the function needs, though
+#     the kernel redoes it in every thread.
+SASS_COMPRESS = {"walk_leaf_levels": "stark_walk_groups_kernelILb0",
+                 "walk_branches": "stark_walk_groups_kernelILb1",
+                 "chain_levels": "stark_chain_kernel"}
+SASS_PROBES = ("probe_eval4_row", "probe_eval4_special_x", "probe_spot3",
+               "probe_spot2", "probe_mul")
 
 SITES = [
     ("merkle_root",), ("l_merkle_root",),
@@ -205,12 +197,13 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound(bytes_moved, units, ops):
-    """(least ms, "bytes" or "operations", the three times) for `units` of
-    work of `ops` = (all, ALU-only) instructions each."""
+def bound(bytes_moved, work):
+    """(least ms, "bytes" or "operations", the three times) for the work
+    [(units, (all, ALU-only) instructions a unit), ...] moving
+    `bytes_moved` bytes."""
     parts = {"bytes_ms": bytes_moved / MEM_BYTES_PER_S * 1e3,
-             "instr_ms": units * ops[0] / INSTR_PER_S * 1e3,
-             "alu_ms": units * ops[1] / ALU_PER_S * 1e3}
+             "instr_ms": sum(u * o[0] for u, o in work) / INSTR_PER_S * 1e3,
+             "alu_ms": sum(u * o[1] for u, o in work) / ALU_PER_S * 1e3}
     ms = max(parts.values())
     return ms, ("bytes" if ms == parts["bytes_ms"] else "operations"), parts
 
@@ -256,28 +249,16 @@ def start_indices(lead, depth, gen):
 # phase 3: each kernel against its plain version
 # ---------------------------------------------------------------------------
 
-def measure(label, call, plain, got, want, moved, units, ops, reps):
+def measure(label, call, plain, got, want, moved, work, reps):
     """A kernel case: its results against the plain version's, the wrapper's
     and the device's time of `call`, the plain version's, and the bound for
-    `units` of work of `ops` instructions moving `moved` bytes."""
+    `work` (as bound() takes it) moving `moved` bytes."""
     err = max(max_abs_err(g, w) for g, w in zip(got, want))
     ms, dms = time_ms(call, reps), device_ms(call)
     plain_ms = time_ms(plain, 2)
-    bms, by, parts = bound(moved, units, ops)
+    bms, by, parts = bound(moved, work)
     return {"shape": label, "max_abs_err": err, "ms": ms, "device_ms": dms,
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, **parts}
-
-
-def block_sweep(call):
-    """Device ms of a grouped walk at each block size the kernels take."""
-    keep, out = merkle_cuda.WALK_BLOCK, {}
-    try:
-        for blk in (32, 64, 128, 256):
-            merkle_cuda.WALK_BLOCK = blk
-            out[blk] = device_ms(call)
-    finally:
-        merkle_cuda.WALK_BLOCK = keep
-    return out
 
 
 def walk_inputs(gen, b, n, vw, depth, levels):
@@ -286,7 +267,7 @@ def walk_inputs(gen, b, n, vw, depth, levels):
     return (val, sib, wit, start_indices((b, n), depth, gen), levels)
 
 
-def check_walk(gen, b, specs, label, reps):
+def check_walk(gen, ops, b, specs, label, reps):
     """Kernel A on the groups of `specs` ((n, vw, depth, levels) each, b x n
     branches) in one launch, against the plain version group by group."""
     groups = [walk_inputs(gen, b, *sp) for sp in specs]
@@ -299,18 +280,14 @@ def check_walk(gen, b, specs, label, reps):
         moved += nbytes(val, sib, ti) + items * 32 * (levels + 1)
         compressions += items * ((3 if val.shape[-1] == 24 else 1) + levels)
 
-    def call():
-        return merkle_cuda.walk_leaf_levels_groups(groups)
-    rec = measure(label, call,
-                  lambda: [merkle_cuda.walk_leaf_levels_plain(*g)
-                           for g in groups],
-                  got, want, moved, compressions, OPS_COMPRESS, reps)
-    if len(groups) > 1:
-        rec["block_sweep"] = block_sweep(call)
-    return rec
+    return measure(label, lambda: merkle_cuda.walk_leaf_levels_groups(groups),
+                   lambda: [merkle_cuda.walk_leaf_levels_plain(*g)
+                            for g in groups],
+                   got, want, moved,
+                   [(compressions, ops["walk_leaf_levels"])], reps)
 
 
-def check_chain(gen, b, q, depth, levels, reps):
+def check_chain(gen, ops, b, q, depth, levels, reps):
     # the main path's operand: levels 1..levels of one branch in four
     wit4 = rand_words(gen, (b, q, 4, depth, 8))
     view = wit4[:, :, 0, 1:1 + levels, :]
@@ -325,10 +302,10 @@ def check_chain(gen, b, q, depth, levels, reps):
                    lambda: merkle_cuda.chain_levels(h, view, ti, levels),
                    lambda: merkle_cuda.chain_levels_plain(h, view, ti, levels),
                    [got], [want], nbytes(h, ti, got) + items * levels * 32,
-                   items * levels, OPS_COMPRESS, reps)
+                   [(items * levels, ops["chain_levels"])], reps)
 
 
-def check_rows(gen, tables, cfg, b, reps):
+def check_rows(gen, ops, tables, cfg, b, reps):
     nl, q = cfg.fri_levels, cfg.fri_queries
     g2t = dev_io.to_tensor(tables.g2_powers, DEV)
     mask = cfg.precision - 1
@@ -346,11 +323,12 @@ def check_rows(gen, tables, cfg, b, reps):
     return measure(f"B={b} levels={nl} queries={q}",
                    lambda: fri_cuda.eval4_rows(*args),
                    lambda: fri_cuda.eval4_rows_plain(*args), [got], [want],
-                   nbytes(x1_inv, x1sq_inv, ys, sx, got), b * nl * q, OPS_ROW,
-                   reps)
+                   nbytes(x1_inv, x1sq_inv, ys, sx, got),
+                   [(b * nl * q, ops["probe_eval4_row"]),
+                    (b * nl, ops["probe_eval4_special_x"])], reps)
 
 
-def check_spot(gen, cfg, b, reps):
+def check_spot(gen, ops, cfg, b, reps):
     n = cfg.spot_checks
     raw5 = rand_limbs(gen, (b, n, 5))
     tab5 = F.canon(rand_limbs(gen, (b, n, 5)))
@@ -384,13 +362,13 @@ def check_spot(gen, cfg, b, reps):
                   lambda: spot_cuda.spot_checks(*args, power=cfg.power),
                   lambda: spot_cuda.spot_checks_plain(*args, power=cfg.power),
                   [got], [want],
-                  nbytes(raw5, tab5, ks4, ic1, ic0) + b * n * 4, b * n,
-                  OPS_SPOT[cfg.power], reps)
+                  nbytes(raw5, tab5, ks4, ic1, ic0) + b * n * 4,
+                  [(b * n, ops[f"probe_spot{cfg.power}"])], reps)
     rec["pass_fractions"] = frac
     return rec
 
 
-def check_mul(gen, shape_a, shape_b, reps, upper_half=False):
+def check_mul(gen, ops, shape_a, shape_b, reps, upper_half=False):
     """Kernel E at one pair of operand shapes (leading shapes, broadcast):
     raw operands, values >= p and the edge values on both sides.  With
     `upper_half`, `a` is the strided view the iNTT's butterfly multiplies:
@@ -415,7 +393,8 @@ def check_mul(gen, shape_a, shape_b, reps, upper_half=False):
              + (f", a with strides {list(a.stride())}" if upper_half else ""))
     return measure(label, lambda: field_cuda.mul_mod(a, b),
                    lambda: field_cuda.mul_mod_plain(a, b), [got], [want],
-                   nbytes(a, b, got), got.numel() // 16, OPS_MUL, reps)
+                   nbytes(a, b, got), [(got.numel() // 16, ops["probe_mul"])],
+                   reps)
 
 
 def branch_inputs(gen, b, n, vw, depth, max_depth=None, mixed=False):
@@ -437,7 +416,8 @@ def branch_inputs(gen, b, n, vw, depth, max_depth=None, mixed=False):
     return (val, sib, wit, ti, d64.to(torch.int32))
 
 
-def check_branches(gen, b, specs, label, reps, max_depth=None, mixed=False):
+def check_branches(gen, ops, b, specs, label, reps, max_depth=None,
+                   mixed=False):
     """Kernel F on the groups of `specs` ((n, vw, depth) each) in one
     launch, against the plain version group by group (and, at a uniform
     depth, against the static walk too)."""
@@ -458,14 +438,11 @@ def check_branches(gen, b, specs, label, reps, max_depth=None, mixed=False):
         moved += nbytes(val, sib, ti, d32) + ti.numel() * 32 + levels * 32
         compressions += ti.numel() * (3 if val.shape[-1] == 24 else 1) + levels
 
-    def call():
-        return merkle_cuda.walk_branches_groups(groups)
-    rec = measure(label, call,
+    rec = measure(label, lambda: merkle_cuda.walk_branches_groups(groups),
                   lambda: [merkle_cuda.walk_branches_plain(*g) for g in groups],
-                  got, want, moved, compressions, OPS_COMPRESS, reps)
+                  got, want, moved, [(compressions, ops["walk_branches"])],
+                  reps)
     rec["compressions"] = compressions
-    if len(groups) > 1:
-        rec["block_sweep"] = block_sweep(call)
     return rec
 
 
@@ -525,30 +502,35 @@ def check_value_classes(gen):
 
 
 def sass_phase():
-    """The instruction counts of the bounds against the built kernels' SASS
-    (stark_verifier_tpu_torch/sass.py).  Prints them, and says so where the
-    code issues fewer than a bound counts (the bounds keep the constants
-    above)."""
+    """The instructions a unit of each kernel's work needs, (all, ALU-only),
+    read from this build's SASS (stark_verifier_tpu_torch/sass.py): the
+    bounds of phase 3 take them from here and nowhere else, so a run that
+    cannot read them fails."""
     try:
         rep = sass.report(str(_build.library_path()))
+        work = sass.work()
     except (OSError, subprocess.SubprocessError) as e:
-        log(f"sass: not read ({e})")
-        return
-    for name, c in rep.items():
-        one = c["compression"]
-        seen = ((one["alu"] + one["adds"], one["alu"]) if one else
-                (c["path"]["all"], c["path"]["alu_only"]))
-        part = next((p for p in (*SASS_COMPRESS, *SASS_PATH) if p in name),
-                    None)
-        want = OPS_COMPRESS if part in SASS_COMPRESS else SASS_PATH.get(part)
-        what = "a compression" if one else "the common path"
-        low = want is not None and any(s < w for s, w in zip(seen, want))
-        log(f"sass {name}: {what} {json.dumps(one or c['path'])}; (all, "
-            f"ALU-only) {seen}" + (f" -- BELOW the bound's {tuple(want)}"
-                                   if low else ""))
+        fail(f"the bounds' instruction counts could not be read from the "
+             f"SASS: {e} {getattr(e, 'stderr', '') or ''}")
+    ops = {}
+    for key, part in SASS_COMPRESS.items():
+        names = [n for n in rep if part in n]
+        one = rep[names[0]]["compression"] if len(names) == 1 else None
+        if one is None:
+            fail(f"sass: no compression found in the level loop of {part}")
+        ops[key] = (one["alu"] + one["adds"], one["alu"])
+        log(f"sass {key}: a compression {json.dumps(one)}; (all, ALU-only) "
+            f"{ops[key]}")
+    for key in SASS_PROBES:
+        if key not in work:
+            fail(f"sass: probe {key} not found in csrc/probes/work.cu's SASS")
+        ops[key] = (work[key]["arith"], work[key]["alu_only"])
+        log(f"sass {key}: {json.dumps(work[key])}; (all, ALU-only) "
+            f"{ops[key]}")
+    return ops
 
 
-def kernel_phase(cfg, tables):
+def kernel_phase(cfg, tables, ops):
     gen = torch.Generator(device=DEV)
     gen.manual_seed(20240613)
     b = CHUNK
@@ -561,33 +543,34 @@ def kernel_phase(cfg, tables):
     sp, q, nl = cfg.spot_checks, cfg.fri_queries, cfg.fri_levels
     a_main = [(2 * sp, 24, dm, dm - 3), (sp, 8, dm, dm - 3)]
     a_cols = [(q, 8, dm - 2 - 2 * l, dm - 5 - 2 * l) for l in range(nl)]
-    a_cases = [check_walk(gen, b, a_main, "main + lincomb, one launch", 20),
-               check_walk(gen, b, a_cols, "5 FRI column groups, one launch",
-                          20)]
+    a_cases = [check_walk(gen, ops, b, a_main, "main + lincomb, one launch",
+                          20),
+               check_walk(gen, ops, b, a_cols,
+                          "5 FRI column groups, one launch", 20)]
     for spec in a_main + a_cols:
         n, vw, _, levels = spec
-        a_cases.append(check_walk(gen, b, [spec],
+        a_cases.append(check_walk(gen, ops, b, [spec],
                                   f"B={b} n={n} vw={vw} levels={levels}", 20))
     b_cases = []
     for l in range(nl):
         d = dm - 2 * l                               # poly tree depth
-        b_cases.append(check_chain(gen, b, q, d, d - 4, 20))
-    c_case = check_rows(gen, tables, cfg, b, 20)
-    d_case = check_spot(gen, cfg, b, 20)
+        b_cases.append(check_chain(gen, ops, b, q, d, d - 4, 20))
+    c_case = check_rows(gen, ops, tables, cfg, b, 20)
+    d_case = check_spot(gen, ops, cfg, b, 20)
     # kernel E at the runtime-statement path's shapes (a boundary product of
     # one chunk and of the whole batch, every butterfly stage of the iNTT of
     # the 64 constants as ops/ntt.py slices it, its final scaling) and at a
     # size whose bound reads real work
     nc = cfg.num_constants
-    e_cases = [check_mul(gen, (b,), (), 20),
-               check_mul(gen, (BATCH,), (), 20),
-               check_mul(gen, (), (BATCH,), 20),
-               check_mul(gen, (nc // 2,), (nc // 2,), 20)]
+    e_cases = [check_mul(gen, ops, (b,), (), 20),
+               check_mul(gen, ops, (BATCH,), (), 20),
+               check_mul(gen, ops, (), (BATCH,), 20),
+               check_mul(gen, ops, (nc // 2,), (nc // 2,), 20)]
     for s in range(nc.bit_length() - 1):
-        e_cases.append(check_mul(gen, (nc >> (s + 1), 1 << s), (1 << s,), 20,
-                                 upper_half=True))
-    e_cases += [check_mul(gen, (nc,), (), 20),
-                check_mul(gen, (MUL_BIG,), (MUL_BIG,), 10)]
+        e_cases.append(check_mul(gen, ops, (nc >> (s + 1), 1 << s), (1 << s,),
+                                 20, upper_half=True))
+    e_cases += [check_mul(gen, ops, (nc,), (), 20),
+                check_mul(gen, ops, (MUL_BIG,), (MUL_BIG,), 10)]
     # kernel F on the groups of the unshared path's two call sites, each in
     # one launch (main + lincomb; 5 column and 5 poly groups, the poly
     # groups 4 x queries independent branches there), then each group
@@ -595,20 +578,20 @@ def kernel_phase(cfg, tables):
     f_main = [(2 * sp, 24, dm), (sp, 8, dm)]
     f_fri = ([(q, 8, dm - 2 - 2 * l) for l in range(nl)]
              + [(4 * q, 8, dm - 2 * l) for l in range(nl)])
-    f_cases = [check_branches(gen, b, f_main, "main + lincomb, one launch",
-                              10),
-               check_branches(gen, b, f_fri,
+    f_cases = [check_branches(gen, ops, b, f_main,
+                              "main + lincomb, one launch", 10),
+               check_branches(gen, ops, b, f_fri,
                               "5 column + 5 poly groups, one launch", 10)]
     for n, vw, depth in f_main + f_fri:
         f_cases.append(check_branches(
-            gen, b, [(n, vw, depth)], f"B={b} n={n} vw={vw} depth={depth}",
-            10))
+            gen, ops, b, [(n, vw, depth)],
+            f"B={b} n={n} vw={vw} depth={depth}", 10))
     f_cases.append(check_branches(
-        gen, b, [(2 * sp, 8, dm)], f"B={b} n={2 * sp} vw=8 depths 1..{dm} "
-        "by lane", 10, mixed=True))
+        gen, ops, b, [(2 * sp, 8, dm)], f"B={b} n={2 * sp} vw=8 depths "
+        f"1..{dm} by lane", 10, mixed=True))
     f_cases.append(check_branches(
-        gen, b, [(2 * sp, 24, dm)], f"B={b} n={2 * sp} vw=24 depth={dm} in "
-        f"{dm + 1} rows", 10, max_depth=dm + 1))
+        gen, ops, b, [(2 * sp, 24, dm)], f"B={b} n={2 * sp} vw=24 depth={dm} "
+        f"in {dm + 1} rows", 10, max_depth=dm + 1))
     check_value_classes(gen)
     per_proof = sum(c["compressions"] for c in f_cases[:2]) // b
     log(f"unshared walk: {per_proof} compressions a proof over "
@@ -1059,7 +1042,7 @@ def main():
     for line in _build.build_log().splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log("  ptxas: " + line.strip())
-    sass_phase()
+    ops = sass_phase()
 
     cfg = StarkConfig(log_steps=LOG_STEPS)
     consts = [(i ** 7) ^ 42 for i in range(cfg.num_constants)]
@@ -1067,7 +1050,7 @@ def main():
     tables = cached_tables(cfg)
     log(f"tables: {time.perf_counter() - t0:.1f} s (host)")
 
-    kernels = kernel_phase(cfg, tables)
+    kernels = kernel_phase(cfg, tables, ops)
     for k in kernels:
         for c in k["cases"]:
             log(f"kernel {k['name']} [{c['shape']}]: max_abs_err "
@@ -1076,9 +1059,7 @@ def main():
                 f"{c['plain_ms']:.2f} ms, bound {c['bound_ms']:.4f} ms "
                 f"({c['bound_by']}; bytes {c['bytes_ms']:.4f}, all "
                 f"instructions {c['instr_ms']:.4f}, ALU pipe "
-                f"{c['alu_ms']:.4f})"
-                + (f", device ms by block size {c['block_sweep']}"
-                   if "block_sweep" in c else ""))
+                f"{c['alu_ms']:.4f})")
         if not k["match"]:
             fail(f"kernel {k['name']} disagrees with its plain version")
 

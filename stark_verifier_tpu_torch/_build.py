@@ -43,12 +43,12 @@ _groups = ctypes.POINTER(WalkGroup)
 # C entry points: every pointer and the stream are c_void_p (a bare Python
 # int would be passed as a 32-bit int and cut the pointer)
 SIGNATURES = {
-    "stark_walk_leaf_levels_groups": [_groups, _i, _i, _p],
+    "stark_walk_leaf_levels_groups": [_groups, _i, _p],
     "stark_chain_levels": [_p, _p, _ll, _p, _p, _i, _ll, _p],
     "stark_eval4_rows": [_p, _p, _p, _p, _u32p, _u32p, _ll, _p, _ll, _p],
     "stark_spot_checks": [_p, _p, _p, _p, _p, _ll, _i, _p, _ll, _p],
     "stark_mul_mod": [_p, _ll, _p, _ll, _p, _ll, _p],
-    "stark_walk_branches_groups": [_groups, _i, _i, _p],
+    "stark_walk_branches_groups": [_groups, _i, _p],
 }
 
 _state = {"lib": None, "seconds": None, "log": ""}

@@ -17,9 +17,9 @@
 // loop) and 156 IADD3 on the ALU pipe, against 165 adds on the FMA pipe.
 // Here every add of G is a multiply-add by a 1 the compiler cannot fold
 // (b2s_one), so the ALU pipe carries 668 ALU-only instructions a level and
-// nothing else, and the FMA pipe 483 (481 adds, 2 for each three-input one).  chip_smoke.py reads these counts from
-// the SASS (stark_verifier_tpu_torch/sass.py) and bounds the walks by the
-// ALU pipe.  On an H100 80GB HBM3 at 700 W the 160-branch walks ran about 5 %
+// nothing else, and the FMA pipe 483 (481 adds, 2 for each three-input
+// one).  chip_smoke.py reads these counts from the SASS of every build
+// (stark_verifier_tpu_torch/sass.py) and bounds the walks by the ALU pipe.  On an H100 80GB HBM3 at 700 W the 160-branch walks ran about 5 %
 // faster for it, not the 1.23x that 826 -> 668 ALU-pipe instructions would
 // give: they stay at 1.4x to 1.5x of that bound, held by something the count
 // does not see.

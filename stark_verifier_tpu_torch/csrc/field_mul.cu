@@ -20,9 +20,9 @@
 // valid element, equals none, and poisons every later product it enters.
 //
 // Bound on an H100: bytes.  An element moves 192 bytes (16-bit limbs one per
-// 32-bit word) for one 256-bit product and one reduction, 532 instructions
-// on its common path (the SASS, counted by stark_verifier_tpu_torch/sass.py):
-// 2.8 per byte, under the card's 10 (33.5 T instructions a second over 3.35
+// 32-bit word) for one 256-bit product and one reduction, about 340
+// instructions of arithmetic (probe_mul of csrc/probes/work.cu in the SASS):
+// 1.8 per byte, under the card's 10 (33.5 T instructions a second over 3.35
 // TB/s).  Packing the public layout to 8 words a value would cut the
 // traffic in half; it is kept equal to the TPU package's so that the two
 // compare array for array.

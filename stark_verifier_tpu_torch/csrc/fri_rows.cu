@@ -16,13 +16,14 @@
 // per (proof, level) ahead of its kernel; here one more multiply per thread
 // is cheaper than a separate pass of small launches.
 //
-// Bound on an H100: instruction issue, narrowly.  A row group moves about 290
-// bytes (128 of rows, two 64-byte gathers, 32 out, a shared 64-byte operand)
-// and its thread issues 4,209 instructions (the SASS of its common path,
-// counted by stark_verifier_tpu_torch/sass.py; the eight 256-bit multiplies
-// with their reductions and carries, 276 of them ALU-only): 14.5 per byte,
-// above the card's 10 (33.5 T instructions a second over 3.35 TB/s).  The
-// 64-byte limb rows (16 bits of value per 32-bit word) come close behind.
+// Bound on an H100: bytes, level with instruction issue.  A row group moves
+// about 290 bytes (128 of rows, two 64-byte gathers, 32 out, a shared 64-byte
+// operand), and the function needs about 2,900 instructions of arithmetic
+// for it (products, reductions, adds and compares: probe_eval4_row of
+// csrc/probes/work.cu in the SASS, plus probe_eval4_special_x's 466 once a
+// (proof, level)): 10 a byte, the card's 10 (33.5 T instructions a second
+// over 3.35 TB/s).  The thread issues more: limb and byte packing, loads,
+// stores, and special_x again.
 #include "field256.cuh"
 
 struct stark_row_consts {
@@ -30,21 +31,21 @@ struct stark_row_consts {
   fe inv4;  // 4^-1
 };
 
-STARK_HD void stark_eval4_one(long long i, const uint32_t* ys_words,
-                              const uint32_t* sx, const uint32_t* x1i,
-                              const uint32_t* x1sqi,
-                              const stark_row_consts& k, long long group,
-                              uint32_t* out) {
-  fe y0 = fe_canon(fe_from_be_words(ys_words + i * 32));
-  fe y1 = fe_canon(fe_from_be_words(ys_words + i * 32 + 8));
-  fe y2 = fe_canon(fe_from_be_words(ys_words + i * 32 + 16));
-  fe y3 = fe_canon(fe_from_be_words(ys_words + i * 32 + 24));
-  long long p = i / group;  // the (proof, level) this row group belongs to
-  fe sxc = fe_canon(fe_from_limbs16(sx + p * 16));
-  fe sx2 = fe_mul(sxc, sxc);
-  fe xi = fe_from_limbs16(x1i + i * 16);
-  fe xsqi = fe_from_limbs16(x1sqi + i * 16);
+// special_x, raw, to its canonical value and square: the work of a (proof,
+// level), which each of its row groups' threads redoes here.
+STARK_HD void stark_eval4_special_x(const fe& sx, fe& sxc, fe& sx2) {
+  sxc = fe_canon(sx);
+  sx2 = fe_mul(sxc, sxc);
+}
 
+// The arithmetic of one row group: raw y0..y3, canonical special_x and its
+// square, x1^-1 and x1^-2 -> P(special_x), canonical.
+STARK_HD fe stark_eval4_core(const fe& y0r, const fe& y1r, const fe& y2r,
+                             const fe& y3r, const fe& sxc, const fe& sx2,
+                             const fe& xi, const fe& xsqi,
+                             const stark_row_consts& k) {
+  fe y0 = fe_canon(y0r), y1 = fe_canon(y1r);
+  fe y2 = fe_canon(y2r), y3 = fe_canon(y3r);
   fe s02 = fe_add(y0, y2), s13 = fe_add(y1, y3);
   fe d02 = fe_sub(y0, y2);
   fe c1 = fe_mul(fe_sub(y1, y3), k.ginv);
@@ -59,7 +60,22 @@ STARK_HD void stark_eval4_one(long long i, const uint32_t* ys_words,
   fe_acc_mul(acc, da, v);
   fe_acc_mul(acc, efv, u);
   fe_acc_add(acc, sa);
-  fe r = fe_mul(fe_reduce(acc), k.inv4);
+  return fe_mul(fe_reduce(acc), k.inv4);
+}
+
+STARK_HD void stark_eval4_one(long long i, const uint32_t* ys_words,
+                              const uint32_t* sx, const uint32_t* x1i,
+                              const uint32_t* x1sqi,
+                              const stark_row_consts& k, long long group,
+                              uint32_t* out) {
+  const uint32_t* y = ys_words + i * 32;
+  long long p = i / group;  // the (proof, level) this row group belongs to
+  fe sxc, sx2;
+  stark_eval4_special_x(fe_from_limbs16(sx + p * 16), sxc, sx2);
+  fe r = stark_eval4_core(fe_from_be_words(y), fe_from_be_words(y + 8),
+                          fe_from_be_words(y + 16), fe_from_be_words(y + 24),
+                          sxc, sx2, fe_from_limbs16(x1i + i * 16),
+                          fe_from_limbs16(x1sqi + i * 16), k);
   fe_to_be_words(r, out + i * 8);
 }
 

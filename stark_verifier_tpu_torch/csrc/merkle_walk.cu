@@ -40,7 +40,11 @@
 #include "blake2s.cuh"
 
 #define STARK_WALK_MAX_GROUPS 32
-#define STARK_WALK_BLOCK_MAX 256
+// Threads a block of A and F.  At 64 registers a thread an SM holds 32 warps
+// whatever the block; on an H100 the grouped walks ran within 1 % of each
+// other at 32, 64 and 128 threads (256: up to 9 % slower on the five column
+// groups), and 64 leaves the scheduler 16 blocks an SM to balance.
+#define STARK_WALK_BLOCK 64
 
 // One branch group of a grouped walk (the host's table and the kernel's
 // parameter share this layout).  Branch i's vw value / sibling words start
@@ -166,7 +170,7 @@ STARK_HD void stark_chain_one(long long i, const uint32_t* h_in,
 #if defined(__CUDACC__)
 
 template <bool DEPTH>
-__global__ void __launch_bounds__(STARK_WALK_BLOCK_MAX)
+__global__ void __launch_bounds__(STARK_WALK_BLOCK)
 stark_walk_groups_kernel(const __grid_constant__ stark_walk_table t) {
   int gi = 0;
   while (gi + 1 < t.count && (long long)blockIdx.x >= t.g[gi + 1].first_block)
@@ -216,14 +220,12 @@ static long long stark_walk_work(const stark_walk_group& g) {
 
 // The grouped walk of kernels A (depth = false) and F (depth = true): checks
 // every descriptor first and returns 1 (cudaErrorInvalidValue) without
-// writing anything if one is bad, or if count or block is out of range;
-// else orders the groups by work, heaviest first, gives each its blocks and
-// launches once.  Returns cudaGetLastError().
+// writing anything if one is bad, or if count is out of range; else orders
+// the groups by work, heaviest first, gives each its blocks and launches
+// once.  Returns cudaGetLastError().
 static int stark_walk_groups(const stark_walk_group* groups, int count,
-                             int block, bool depth, void* stream) {
-  if (count < 0 || count > STARK_WALK_MAX_GROUPS || block < 32 ||
-      block > STARK_WALK_BLOCK_MAX || block % 32 != 0)
-    return 1;
+                             bool depth, void* stream) {
+  if (count < 0 || count > STARK_WALK_MAX_GROUPS) return 1;
   for (int k = 0; k < count; ++k)
     if (!stark_walk_group_ok(groups[k], depth)) return 1;
   int order[STARK_WALK_MAX_GROUPS];
@@ -243,7 +245,7 @@ static int stark_walk_groups(const stark_walk_group* groups, int count,
     if (g.n == 0) continue;
     t.g[t.count] = g;
     t.g[t.count].first_block = blocks;
-    blocks += (g.n + block - 1) / block;
+    blocks += (g.n + STARK_WALK_BLOCK - 1) / STARK_WALK_BLOCK;
     ++t.count;
   }
   if (t.count == 0) return 0;
@@ -251,9 +253,11 @@ static int stark_walk_groups(const stark_walk_group* groups, int count,
 #if defined(__CUDACC__)
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (depth)
-    stark_walk_groups_kernel<true><<<(unsigned)blocks, block, 0, st>>>(t);
+    stark_walk_groups_kernel<true><<<(unsigned)blocks, STARK_WALK_BLOCK, 0,
+                                        st>>>(t);
   else
-    stark_walk_groups_kernel<false><<<(unsigned)blocks, block, 0, st>>>(t);
+    stark_walk_groups_kernel<false><<<(unsigned)blocks, STARK_WALK_BLOCK, 0,
+                                        st>>>(t);
   return (int)cudaGetLastError();
 #else
   (void)stream;
@@ -269,20 +273,19 @@ static int stark_walk_groups(const stark_walk_group* groups, int count,
 }
 
 // Kernel A: each group's leaf hash and its first `levels` witness levels,
-// widths 8 or 24 (depth ignored).  `block` threads a block (32 to 256, a
-// multiple of 32).
+// widths 8 or 24 (depth ignored).
 extern "C" int stark_walk_leaf_levels_groups(const void* groups, int count,
-                                             int block, void* stream) {
+                                             void* stream) {
   return stark_walk_groups(static_cast<const stark_walk_group*>(groups),
-                           count, block, false, stream);
+                           count, false, stream);
 }
 
 // Kernel F: each branch's leaf hash and its own min(depth[i], levels)
 // witness levels, any width >= 1.
 extern "C" int stark_walk_branches_groups(const void* groups, int count,
-                                          int block, void* stream) {
+                                          void* stream) {
   return stark_walk_groups(static_cast<const stark_walk_group*>(groups),
-                           count, block, true, stream);
+                           count, true, stream);
 }
 
 // Kernel B.  h_in [n, 8] running digests; witness: branch i's level k at

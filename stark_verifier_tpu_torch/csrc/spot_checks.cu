@@ -16,33 +16,28 @@
 //
 // One thread per position, all values in registers.  Bound on an H100: bytes.
 // A position reads 640 bytes of its own (ten values as 16-bit limbs in 32-bit
-// words, 64 bytes each) plus 384 shared per proof, and issues 4,761
-// instructions for power 3 and 4,309 for power 2 (the SASS of its common
-// path, counted by stark_verifier_tpu_torch/sass.py): 7 per byte, under the
-// card's 10 (33.5 T instructions a second over 3.35 TB/s).  Packing the
-// operands to 8 words a value would halve the traffic; the layout is kept
-// equal to the TPU package's public one for now so that the two compare
-// array for array.
+// words, 64 bytes each) plus 384 shared per proof, and the function needs
+// about 4,000 instructions of arithmetic for power 3 and 3,600 for power 2
+// (probe_spot3 / probe_spot2 of csrc/probes/work.cu in the SASS): 6 per
+// byte, under the card's 10 (33.5 T instructions a second over 3.35 TB/s).
+// Each operand is read where it is first used, which keeps the thread near
+// 110 registers.  Packing the operands to 8 words a value would halve the
+// traffic; the layout is kept equal to the TPU package's public one for now
+// so that the two compare array for array.
 #include "field256.cuh"
 
-template <int POWER>
-STARK_HD void stark_spot_one(long long i, const uint32_t* raw5,
-                             const uint32_t* tab5, const uint32_t* ks4,
-                             const uint32_t* ic1, const uint32_t* ic0,
-                             long long group, uint32_t* out) {
-  const uint32_t* r = raw5 + i * 80;
-  const uint32_t* t = tab5 + i * 80;
-  fe p = fe_canon(fe_from_limbs16(r));
-  fe pg1 = fe_canon(fe_from_limbs16(r + 16));
-  fe d = fe_canon(fe_from_limbs16(r + 32));
-  fe b = fe_canon(fe_from_limbs16(r + 48));
-  fe l = fe_canon(fe_from_limbs16(r + 64));
-  fe x = fe_from_limbs16(t);
-  fe xs = fe_from_limbs16(t + 16);
-  fe z = fe_from_limbs16(t + 32);
-  fe z2 = fe_from_limbs16(t + 48);
-  fe kx = fe_from_limbs16(t + 64);
-  long long q = i / group;  // the proof this position belongs to
+// The arithmetic of one position.  v(j) is its operand j as a field
+// element: 0..4 P(x), P(g1 x), D(x), B(x), L(x), raw; 5..9 x, x^steps, Z, Z2,
+// K, canonical; 10..13 k1..k4, raw; 14, 15 I1, I0, canonical.  Returns the
+// three bits.
+template <int POWER, class Operands>
+STARK_HD uint32_t stark_spot_core(const Operands& v) {
+  fe p = fe_canon(v(0));
+  fe pg1 = fe_canon(v(1));
+  fe d = fe_canon(v(2));
+  fe b = fe_canon(v(3));
+  fe l = fe_canon(v(4));
+  fe x = v(5), xs = v(6), z = v(7), z2 = v(8), kx = v(9);
   uint32_t ok = 0;
   fe_acc acc;
 
@@ -59,23 +54,48 @@ STARK_HD void stark_spot_one(long long i, const uint32_t* raw5,
   // boundary
   fe_acc_zero(acc);
   fe_acc_mul(acc, b, z2);
-  fe_acc_mul(acc, fe_from_limbs16(ic1 + q * 16), x);
-  fe_acc_add(acc, fe_from_limbs16(ic0 + q * 16));
+  fe_acc_mul(acc, v(14), x);
+  fe_acc_add(acc, v(15));
   ok |= fe_eq(p, fe_reduce(acc)) ? 2u : 0u;
 
   // lincomb (raw k's)
   fe p_xs = fe_mul(p, xs);
   fe b_xs = fe_mul(b, xs);
-  const uint32_t* k = ks4 + q * 64;
   fe_acc_zero(acc);
-  fe_acc_mul(acc, fe_from_limbs16(k), p);
-  fe_acc_mul(acc, fe_from_limbs16(k + 16), p_xs);
-  fe_acc_mul(acc, fe_from_limbs16(k + 32), b);
-  fe_acc_mul(acc, fe_from_limbs16(k + 48), b_xs);
+  fe_acc_mul(acc, v(10), p);
+  fe_acc_mul(acc, v(11), p_xs);
+  fe_acc_mul(acc, v(12), b);
+  fe_acc_mul(acc, v(13), b_xs);
   fe_acc_add(acc, d);
   ok |= fe_eq(l, fe_reduce(acc)) ? 4u : 0u;
+  return ok;
+}
 
-  out[i] = ok;
+// A position's operands where they lie: its own rows of raw5 and tab5, its
+// proof's rows of ks4, ic1 and ic0, as 16-bit limbs.
+struct stark_spot_limbs {
+  const uint32_t* raw;
+  const uint32_t* tab;
+  const uint32_t* ks;
+  const uint32_t* ic1;
+  const uint32_t* ic0;
+  STARK_HD fe operator()(int j) const {
+    return fe_from_limbs16(j < 5 ? raw + 16 * j
+                           : j < 10 ? tab + 16 * (j - 5)
+                           : j < 14 ? ks + 16 * (j - 10)
+                           : j == 14 ? ic1 : ic0);
+  }
+};
+
+template <int POWER>
+STARK_HD void stark_spot_one(long long i, const uint32_t* raw5,
+                             const uint32_t* tab5, const uint32_t* ks4,
+                             const uint32_t* ic1, const uint32_t* ic0,
+                             long long group, uint32_t* out) {
+  long long q = i / group;  // the proof this position belongs to
+  stark_spot_limbs v = {raw5 + i * 80, tab5 + i * 80, ks4 + q * 64,
+                        ic1 + q * 16, ic0 + q * 16};
+  out[i] = stark_spot_core<POWER>(v);
 }
 
 #if defined(__CUDACC__)

@@ -23,13 +23,7 @@ from . import blake2s
 # launches per kernel since the last reset (chip_smoke.py reads these)
 launches = {"walk_leaf_levels": 0, "chain_levels": 0, "walk_branches": 0}
 
-# Threads a block of the grouped walks A and F (32 to 256, a multiple of 32),
-# and groups a launch (csrc/merkle_walk.cu: STARK_WALK_MAX_GROUPS).  At 64
-# registers a thread an SM holds 32 warps whatever the block; on an H100 the
-# grouped walks ran within 1 % of each other at 32, 64 and 128 threads (256:
-# up to 9 % slower on the five column groups), and 64 leaves the scheduler
-# 16 blocks an SM to balance.
-WALK_BLOCK = 64
+# groups a launch of A or F (csrc/merkle_walk.cu: STARK_WALK_MAX_GROUPS)
 MAX_GROUPS = 32
 
 
@@ -108,7 +102,7 @@ def _launch(entry: str, name: str, descs: list, dev) -> None:
         for k in range(0, len(descs), MAX_GROUPS):
             part = descs[k:k + MAX_GROUPS]
             rc = getattr(lib, entry)((_build.WalkGroup * len(part))(*part),
-                                     len(part), WALK_BLOCK, stream)
+                                     len(part), stream)
             _build.check(rc, entry)
             launches[name] += 1
 
@@ -251,19 +245,11 @@ def _branch_rows(value_words, sibling_words, nlead: int):
     return value_words, sibling_words, vstride
 
 
-def walk_branches_groups(groups: list) -> list:
-    """walk_branches over several groups in one launch of kernel F.
-
-    groups: (value, sibling, witness, tree_index, depth) tuples, each as
-    walk_branches takes them (the value-size classes of a ragged group may
-    be groups of their own).  Returns one [..., 8] digest tensor a group.
-    On the CPU, the plain version group by group."""
-    if not groups:
-        return []
-    dev = groups[0][0].device
-    if dev.type == "cpu":
-        return [walk_branches_plain(*g) for g in groups]
-    descs, outs = [], []
+def _branch_table(groups: list, dev) -> tuple:
+    """(descriptors, digest tensors, rows) of kernel F's launch over
+    `groups`.  `rows` holds the dense copies _branch_rows made: the
+    descriptors point into them, so they must outlive the launch."""
+    descs, outs, rows = [], [], []
     for value_words, sibling_words, witness_words, tree_index, depth in groups:
         lead = value_words.shape[:-1]
         vw = value_words.shape[-1]
@@ -283,6 +269,7 @@ def walk_branches_groups(groups: list) -> list:
         stride = _witness_stride(witness_words, len(lead), max_depth)
         value_words, sibling_words, vstride = _branch_rows(
             value_words, sibling_words, len(lead))
+        rows.append((value_words, sibling_words))
         out = torch.empty(lead + (8,), dtype=torch.int32, device=dev)
         outs.append(out)
         if out.numel():
@@ -290,8 +277,25 @@ def walk_branches_groups(groups: list) -> list:
                 value_words, sibling_words, witness_words,
                 _dense(tree_index, "tree_index"), _dense(depth, "depth"), out,
                 vstride if lead else vw, stride, max_depth))
+    return descs, outs, rows
+
+
+def walk_branches_groups(groups: list) -> list:
+    """walk_branches over several groups in one launch of kernel F.
+
+    groups: (value, sibling, witness, tree_index, depth) tuples, each as
+    walk_branches takes them (the value-size classes of a ragged group may
+    be groups of their own).  Returns one [..., 8] digest tensor a group.
+    On the CPU, the plain version group by group."""
+    if not groups:
+        return []
+    dev = groups[0][0].device
+    if dev.type == "cpu":
+        return [walk_branches_plain(*g) for g in groups]
+    descs, outs, rows = _branch_table(groups, dev)
     if descs:
         _launch("stark_walk_branches_groups", "walk_branches", descs, dev)
+    del rows        # the launch is queued: the copies may go back to the pool
     return outs
 
 

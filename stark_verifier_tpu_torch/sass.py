@@ -13,19 +13,23 @@ This module sorts each instruction by the pipe that can run it on Hopper:
 
 and counts them over a loop body (the code between a backward branch and its
 target) or over the path a thread takes through a kernel without loops.
-chip_smoke.py takes its bounds' instruction counts from here.  Run on a
-machine with the CUDA toolkit:
+
+chip_smoke.py computes its bounds' instruction counts from here on every run:
+the Merkle kernels' from one compression of their level loop (a loop body
+holds one compression when its PRMT count, 2 a G function, is 160), the field
+kernels' from the probes of csrc/probes/work.cu (work()), which isolate the
+arithmetic a unit of each kernel's function needs.  Run on a machine with the
+CUDA toolkit:
 
     python3 -m stark_verifier_tpu_torch.sass          # builds if needed
 
-prints one JSON object: for every kernel, the per-class counts of its common
-path, and for the Merkle kernels those of one compression of the level loop
-(a loop body holds one compression when its PRMT count, 2 a G function, is
-160).
+prints one JSON object: for every kernel of the library, the per-class counts
+of its common path and of one compression; under "work", each probe's.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import re
@@ -147,6 +151,45 @@ def dump(lib_path: str) -> str:
                           capture_output=True, text=True, timeout=300).stdout
 
 
+PROBES = _build.CSRC / "probes" / "work.cu"
+
+
+def _probe_cubin() -> str:
+    """csrc/probes/work.cu built for sm_90a as a cubin beside the library
+    (named by the hash of the sources and the probe file)."""
+    h = hashlib.sha256(_build.source_hash().encode() + PROBES.read_bytes())
+    out = _build.BUILD_DIR / f"probes_{h.hexdigest()[:16]}.cubin"
+    if not out.exists():
+        _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".tmp{os.getpid()}")
+        flags = [f for f in _build.NVCC_FLAGS
+                 if f not in ("-Xcompiler", "-fPIC", "-Xptxas", "-v")]
+        subprocess.run([_build.find_nvcc(), *flags, "-cubin", str(PROBES),
+                        "-o", str(tmp)], check=True, capture_output=True,
+                       text=True, timeout=600)
+        os.replace(tmp, out)
+    return str(out)
+
+
+def work(listing: str | None = None) -> dict:
+    """Per probe of csrc/probes/work.cu (or of `listing`, its SASS): its
+    path's counts by class less probe_copy's (the thread index, the
+    operands' addresses), with "arith" the instructions of the ALU and FMA
+    pipes (alu_only + add_alu + add_fma).  Loads, stores and moves are left
+    out."""
+    if listing is None:
+        listing = dump(_probe_cubin())
+    probes = {name: counts(path(insns))
+              for name, insns in parse(listing).items()}
+    base = probes.pop("probe_copy")
+    out = {}
+    for name, c in probes.items():
+        d = {k: max(c[k] - base[k], 0) for k in CLASSES}
+        d["arith"] = d["alu_only"] + d["add_alu"] + d["add_fma"]
+        out[name] = d
+    return out
+
+
 def report(lib_path: str) -> dict:
     """Per kernel (mangled name): the counts of its common path, and of one
     compression where the kernel hashes (else None)."""
@@ -157,7 +200,8 @@ def report(lib_path: str) -> dict:
 
 def main():
     _build.load()
-    print(json.dumps(report(str(_build.library_path())), indent=1))
+    print(json.dumps({**report(str(_build.library_path())), "work": work()},
+                     indent=1))
 
 
 if __name__ == "__main__":

@@ -66,9 +66,8 @@ def _group(val, sib, wit, ti, depth, out, vstride, wit_stride, levels):
         vstride, wit_stride, out.numel() // 8, val.shape[-1], levels, 0)
 
 
-def _walk(fn, groups, block=64):
-    return fn((_build.WalkGroup * len(groups))(*groups), len(groups), block,
-              None)
+def _walk(fn, groups):
+    return fn((_build.WalkGroup * len(groups))(*groups), len(groups), None)
 
 
 @pytest.mark.parametrize("vw,depth,levels", [(8, 4, 3), (8, 12, 12),
@@ -114,20 +113,22 @@ def _mixed_groups(rng, depth_per_branch):
 
 
 @pytest.mark.parametrize("kernel", ["walk_leaf_levels", "walk_branches"])
-@pytest.mark.parametrize("block", [32, 256])
-def test_host_walk_groups(hostlib, kernel, block):
+@pytest.mark.parametrize("order", ["as_made", "reversed"])
+def test_host_walk_groups(hostlib, kernel, order):
     """Several groups in one call of the grouped entry point: each group's
-    digests equal its plain version's, whatever order the entry point walks
-    the groups in and however many blocks it gives each."""
+    digests equal its plain version's, whatever order the table lists the
+    groups in (the entry point walks the heaviest first)."""
     f = kernel == "walk_branches"
-    rng = np.random.RandomState(17 + block)
+    rng = np.random.RandomState(17)
     groups = _mixed_groups(rng, f)
+    if order == "reversed":
+        groups = groups[::-1]
     outs = [torch.full((val.shape[0], 8), 7, dtype=torch.int32)
             for val, *_ in groups]
     descs = [_group(val, sib, wit, ti, d, out, val.shape[-1], depth * 8,
                     depth - (0 if f else 1))
              for (val, sib, wit, ti, d, depth), out in zip(groups, outs)]
-    rc = _walk(getattr(hostlib, f"stark_{kernel}_groups"), descs, block)
+    rc = _walk(getattr(hostlib, f"stark_{kernel}_groups"), descs)
     assert rc == 0
     for (val, sib, wit, ti, d, depth), out in zip(groups, outs):
         want = (merkle_cuda.walk_branches_plain(val, sib, wit, ti, d) if f
@@ -138,10 +139,10 @@ def test_host_walk_groups(hostlib, kernel, block):
 
 @pytest.mark.parametrize("fault", [
     "a_width", "f_width", "vstride", "levels", "value_alignment",
-    "witness_stride", "no_depth", "count", "block"])
+    "witness_stride", "no_depth", "count", "branches"])
 def test_host_walk_groups_reject_a_bad_table(hostlib, fault):
-    """One bad descriptor, a count above 32 or a bad block size: the entry
-    point returns 1 and writes nothing, not even the good groups' digests."""
+    """One bad descriptor or a count above 32: the entry point returns 1
+    and writes nothing, not even the good groups' digests."""
     f = fault not in ("a_width",)
     rng = np.random.RandomState(3)
     groups = _mixed_groups(rng, True)[:2]
@@ -150,7 +151,7 @@ def test_host_walk_groups_reject_a_bad_table(hostlib, fault):
     descs = [_group(val, sib, wit, ti, d if f else None, out, val.shape[-1],
                     depth * 8, depth)
              for (val, sib, wit, ti, d, depth), out in zip(groups, outs)]
-    bad, block, count = descs[1], 64, len(descs)
+    bad, count = descs[1], len(descs)
     if fault in ("a_width", "f_width"):
         bad.vw = 16 if fault == "a_width" else 0
     elif fault == "vstride":
@@ -167,11 +168,11 @@ def test_host_walk_groups_reject_a_bad_table(hostlib, fault):
         descs = descs * 17
         count = len(descs)
     else:
-        block = 48
+        bad.n = -1
     fn = hostlib.stark_walk_branches_groups if f else \
         hostlib.stark_walk_leaf_levels_groups
     table = (_build.WalkGroup * len(descs))(*descs)
-    assert fn(table, count, block, None) == 1
+    assert fn(table, count, None) == 1
     for out in outs:
         assert (out == 7).all()
 
@@ -381,3 +382,36 @@ def test_host_walk_branches_column_slice_and_padded_witness(hostlib):
     np.testing.assert_array_equal(out.numpy(), want.numpy())
     group.vstride = 4
     assert _walk(hostlib.stark_walk_branches_groups, [group]) != 0
+
+
+@pytest.mark.parametrize("row,cols", [(10, (0, 8)), (26, (2, 26))])
+def test_host_walk_branches_groups_keep_their_row_copies(hostlib, row, cols):
+    """Value rows of 8 or 24 words that are not 16-byte aligned (a column
+    slice of wider rows) are walked from dense copies.  The descriptors of
+    one launch point into every group's copies, so the copies must outlive
+    the whole table, not only the group that made them: tensors allocated
+    after the table is built (the next groups' copies and digests on the
+    card) must not take their memory."""
+    rng = np.random.RandomState(row)
+    lo, hi = cols
+    groups = []
+    for n, depth in ((9, 4), (9, 3), (5, 2)):
+        val, sib = _words(rng, (n, row)), _words(rng, (n, row))
+        wit = _words(rng, (n, depth, 8))
+        d = _i32(np.full(n, depth, dtype=np.uint32))
+        groups.append((val[:, lo:hi], sib[:, lo:hi], wit,
+                       _start_index(n, depth), d))
+    descs, outs, rows = merkle_cuda._branch_table(groups, torch.device("cpu"))
+    for desc, (val, sib) in zip(descs, rows):
+        assert val.is_contiguous() and val.data_ptr() % 16 == 0
+        assert (desc.value, desc.sibling) == (val.data_ptr(), sib.data_ptr())
+    later = [torch.full_like(t, 7) for val, sib in rows for t in (val, sib)
+             for _ in range(4)]
+    kept = {(t.data_ptr(), t.data_ptr() + t.numel() * 4)
+            for val, sib in rows for t in (val, sib)}
+    assert not any(a < t.data_ptr() + t.numel() * 4 and t.data_ptr() < b
+                   for a, b in kept for t in later)
+    assert _walk(hostlib.stark_walk_branches_groups, descs) == 0
+    for g, out in zip(groups, outs):
+        np.testing.assert_array_equal(
+            out.numpy(), merkle_cuda.walk_branches_plain(*g).numpy())
