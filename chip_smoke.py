@@ -18,8 +18,10 @@ the CPU):
                  of the library and of csrc/probes/work.cu);
   3. kernels  -- each kernel against its plain PyTorch version on the card,
                  bit-exact, at the shapes its path gives it (the Merkle walks
-                 A and F also with all groups of a call site in one launch,
-                 as the path runs them), with the wrapper's time (CUDA events
+                 A, B and F also with all groups of a call site in one
+                 launch, as the path runs them; D at power 3 and 2, with its
+                 K table and with K rows, on four lanes and on one thread a
+                 position), with the wrapper's time (CUDA events
                  around Python calls) and its device time (calls replayed
                  from a CUDA graph) beside the least time the card could
                  take;
@@ -78,8 +80,8 @@ from stark_verifier_tpu_torch import _build, fp, sass  # noqa: E402
 from stark_verifier_tpu_torch.config import StarkConfig, cached_tables  # noqa: E402
 from stark_verifier_tpu_torch.models.square import SquareStatement  # noqa: E402
 from stark_verifier_tpu_torch.ops import (  # noqa: E402
-    field as F, field_cuda, fri_cuda, merkle as merkle_ops, merkle_cuda,
-    spot_cuda)
+    blake2s, field as F, field_cuda, fri_cuda, merkle as merkle_ops,
+    merkle_cuda, spot_cuda)
 from stark_verifier_tpu_torch.proofio import device as dev_io, wire  # noqa: E402
 from stark_verifier_tpu_torch.protocol import verify as V  # noqa: E402
 
@@ -117,15 +119,15 @@ ALU_PER_S = 67e12 / 4
 #     kernel (part of its mangled name here), its LOP3, PRMT and SHF (the
 #     xors, rotates and feed-forward, ALU pipe only) and its adds; the row's
 #     loads, the message selects and the loop's control are left out, so
-#     that a leaf's compressions count the same;
+#     that a leaf's compressions (and B's combine) count the same;
 #   kernels C, D and E: the probes of csrc/probes/work.cu, the products,
 #     reductions, adds and compares of a unit of the function, with no
 #     loads, stores, moves or limb packing; C's special_x is canonicalized
 #     and squared once per (proof, level), as the function needs, though
 #     the kernel redoes it in every thread.
-SASS_COMPRESS = {"walk_leaf_levels": "stark_walk_groups_kernelILb0",
-                 "walk_branches": "stark_walk_groups_kernelILb1",
-                 "chain_levels": "stark_chain_kernel"}
+SASS_COMPRESS = {"walk_leaf_levels": "stark_walk_groups_kernelILi0",
+                 "walk_branches": "stark_walk_groups_kernelILi1",
+                 "walk_quads": "stark_walk_groups_kernelILi2"}
 SASS_PROBES = ("probe_eval4_row", "probe_eval4_special_x", "probe_spot3",
                "probe_spot2", "probe_mul")
 
@@ -287,22 +289,51 @@ def check_walk(gen, ops, b, specs, label, reps):
                    [(compressions, ops["walk_leaf_levels"])], reps)
 
 
-def check_chain(gen, ops, b, q, depth, levels, reps):
-    # the main path's operand: levels 1..levels of one branch in four
-    wit4 = rand_words(gen, (b, q, 4, depth, 8))
-    view = wit4[:, :, 0, 1:1 + levels, :]
-    h = rand_words(gen, (b, q, 8))
-    ti = torch.randint(8, 1 << 20, (b, q), generator=gen, device=DEV,
-                       dtype=torch.int64).to(torch.int32)
-    got = merkle_cuda.chain_levels(h, view, ti, levels)
+def quad_inputs(gen, b, q, depth, levels, bad=True):
+    """One FRI poly group of the shared walk as kernel B takes it: b x 4q
+    branches in sibling quads (b's sibling is b+1's value), 4-aligned start
+    indices, every branch's first witness the other pair's digest -- except,
+    with `bad`, branch 1's in every seventh quad, whose ok word must be 0."""
+    val = rand_words(gen, (b, q, 4, 8))
+    sib = val[:, :, [1, 0, 3, 2], :].contiguous()
+    wit = rand_words(gen, (b, q, 4, depth, 8))
+    pairs = blake2s.hash_leaf_pair(val[:, :, 0::2], sib[:, :, 0::2])
+    wit[:, :, 0:2, 0] = pairs[:, :, None, 1]
+    wit[:, :, 2:4, 0] = pairs[:, :, None, 0]
+    if bad:
+        wit[:, 3::7, 1, 0, 2] ^= 1
+    y = torch.randint(0, 1 << (depth - 1), (b, q, 1), generator=gen,
+                      device=DEV, dtype=torch.int64)
+    ti = ((1 << (depth + 2)) + 4 * y
+          + torch.arange(4, device=DEV)).to(torch.int32)
+    return (val.reshape(b, 4 * q, 8), sib.reshape(b, 4 * q, 8),
+            wit.reshape(b, 4 * q, depth, 8), ti.reshape(b, 4 * q), levels)
+
+
+def check_quads(gen, ops, b, specs, label, reps,
+                entry="stark_walk_quads_groups"):
+    """Kernel B on the quad groups of `specs` ((q, depth, levels) each, b x q
+    quads) in one launch, against the plain version group by group."""
+    groups = [quad_inputs(gen, b, *sp) for sp in specs]
+    got = merkle_cuda.walk_quads_groups(groups, entry)
     torch.cuda.synchronize()
-    want = merkle_cuda.chain_levels_plain(h, view, ti, levels)
-    items = b * q
-    return measure(f"B={b} n={q} levels={levels}",
-                   lambda: merkle_cuda.chain_levels(h, view, ti, levels),
-                   lambda: merkle_cuda.chain_levels_plain(h, view, ti, levels),
-                   [got], [want], nbytes(h, ti, got) + items * levels * 32,
-                   [(items * levels, ops["chain_levels"])], reps)
+    want = [merkle_cuda.walk_quads_plain(*g) for g in groups]
+    for _, ok in want:
+        if bool(ok.all()) or not bool(ok.any()):
+            fail("quad comparison inputs do not mix passing and failing "
+                 "first witnesses as intended")
+    # what a quad needs: its two leaves' rows, four first witnesses, its
+    # levels' rows, its start index; out a digest and an ok word
+    moved = compressions = 0
+    for val, *_, levels in groups:
+        quads = val.numel() // 32
+        moved += quads * (4 * 32 + 4 * 32 + levels * 32 + 4 + 32 + 4)
+        compressions += quads * (3 + levels)
+    return measure(label, lambda: merkle_cuda.walk_quads_groups(groups, entry),
+                   lambda: [merkle_cuda.walk_quads_plain(*g) for g in groups],
+                   [t for pair in got for t in pair],
+                   [t for pair in want for t in pair], moved,
+                   [(compressions, ops["walk_quads"])], reps)
 
 
 def check_rows(gen, ops, tables, cfg, b, reps):
@@ -328,42 +359,81 @@ def check_rows(gen, ops, tables, cfg, b, reps):
                     (b * nl, ops["probe_eval4_special_x"])], reps)
 
 
-def check_spot(gen, ops, cfg, b, reps):
+def spot_tables(tables, cfg):
+    return spot_cuda.SpotTables(
+        *(dev_io.to_tensor(fp.limbs_to_le_words(getattr(tables, name)), DEV)
+          for name in ("g2_powers", "z_table", "z2_table", "k_table")),
+        log_steps=cfg.log_steps)
+
+
+def spot_inputs(gen, cfg, tabs, b, power, k_rows):
+    """Kernel D's operands at the path's shapes: the proof's main and
+    lincomb value rows (raw words, 0xFFFFFFFF words mixed in), positions in
+    the domain, raw k-hash words, canonical interpolant rows, and, with
+    `k_rows`, a packed K row a position (the runtime-statement path).
+    Random inputs fail every check: the committed values are rewritten so
+    that the transition holds at every third position from 0, the lincomb
+    from 1 and the boundary from 2."""
     n = cfg.spot_checks
-    raw5 = rand_limbs(gen, (b, n, 5))
-    tab5 = F.canon(rand_limbs(gen, (b, n, 5)))
-    ks4 = rand_limbs(gen, (b, 1, 4))             # raw k's, some >= p
-    ic1 = F.canon(rand_limbs(gen, (b, 1)))
-    ic0 = F.canon(rand_limbs(gen, (b, 1))).flip(0).contiguous()
-    # random inputs fail every check; make each family hold at some
-    # positions (a canonical right-hand side is a valid raw encoding of
-    # itself)
-    p, d, bb = (F.canon(raw5[..., i, :]) for i in (0, 2, 3))
-    x, xs, z, z2, k = (tab5[..., i, :] for i in range(5))
-    mul = field_cuda.mul_mod_plain   # input making stays off the multiply kernel
-    rhs_t = F.mul_sum_mod([(mul(p, p), p), (z, d)], extra=[k])
-    raw5[:, 0::3, 1] = rhs_t[:, 0::3]
-    rhs_l = F.mul_sum_mod(
-        [(ks4[..., 0, :], p), (ks4[..., 1, :], mul(p, xs)),
-         (ks4[..., 2, :], bb), (ks4[..., 3, :], mul(bb, xs))], extra=[d])
-    raw5[:, 1::3, 4] = rhs_l[:, 1::3]
-    rhs_b = F.mul_sum_mod([(bb, z2), (ic1, x)], extra=[ic0.expand(x.shape)])
-    raw5[:, 2::3, 0] = rhs_b[:, 2::3]            # (changes P: only bit 1 there)
-    args = (raw5, tab5, ks4, ic1, ic0)
-    got = spot_cuda.spot_checks(*args, power=cfg.power)
+    main = rand_words(gen, (b, 2 * n, 24))
+    lin = rand_words(gen, (b, n, 8))
+    kh = rand_words(gen, (b, 4, 8))
+    pos = torch.randint(0, cfg.precision, (b, n), generator=gen, device=DEV,
+                        dtype=torch.int64)
+    ic1 = F.canon(rand_limbs(gen, (b,)))
+    ic0 = F.canon(rand_limbs(gen, (b,))).flip(0).contiguous()
+    kr = (F.limbs_to_words_le(F.canon(rand_limbs(gen, (b, n)))).contiguous()
+          if k_rows else None)
+    # the right-hand sides, from the plain version's limbs and gathers
+    # (input making stays off the multiply kernel)
+    mul = field_cuda.mul_mod_plain
+    mv = main.view(b, n, 2, 3, 8)
+    p, d, bb = (F.canon(F.words_be_to_limbs(mv[..., 0, j, :]))
+                for j in range(3))
+    mask = cfg.precision - 1
+    x, xs, z, z2 = (F.words_le_to_limbs(t[i]) for t, i in (
+        (tabs.g2, pos & mask), (tabs.g2, (pos << cfg.log_steps) & mask),
+        (tabs.z, pos & mask), (tabs.z2, pos & mask)))
+    k = F.words_le_to_limbs(kr if k_rows
+                            else tabs.k[pos & (tabs.k.shape[0] - 1)])
+    ks = F.words_be_to_limbs(kh)[:, None]
+    p_pow = [(mul(p, p), p)] if power == 3 else [(p, p)]
+    rhs_t = F.limbs_to_words_be(F.mul_sum_mod(p_pow + [(z, d)], extra=[k]))
+    rhs_l = F.limbs_to_words_be(F.mul_sum_mod(
+        [(ks[..., 0, :], p), (ks[..., 1, :], mul(p, xs)),
+         (ks[..., 2, :], bb), (ks[..., 3, :], mul(bb, xs))], extra=[d]))
+    rhs_b = F.limbs_to_words_be(F.mul_sum_mod(
+        [(bb, z2), (ic1[:, None], x)], extra=[ic0[:, None].expand(x.shape)]))
+    mv[:, 0::3, 1, 0] = rhs_t[:, 0::3]
+    lin[:, 1::3] = rhs_l[:, 1::3]
+    mv[:, 2::3, 0, 0] = rhs_b[:, 2::3]           # (changes P: only bit 1 there)
+    return (main, lin, pos, kh, ic1, ic0, tabs, kr)
+
+
+def check_spot(gen, ops, cfg, tabs, b, power, reps, k_rows=False, lanes=4):
+    args = spot_inputs(gen, cfg, tabs, b, power, k_rows)
+    got = spot_cuda.spot_checks(*args, power=power, lanes=lanes)
     torch.cuda.synchronize()
-    want = spot_cuda.spot_checks_plain(*args, power=cfg.power)
+    want = spot_cuda.spot_checks_plain(*args, power=power)
     frac = want.to(torch.float32).mean(dim=(0, 1)).tolist()
     if not (want[:, 0::3, 0].all() and want[:, 1::3, 2].all()
             and want[:, 2::3, 1].all()) or want.all():
         fail("spot-check comparison inputs do not mix passing and failing "
              f"positions as intended (pass fractions {frac})")
-    rec = measure(f"B={b} positions={n}",
-                  lambda: spot_cuda.spot_checks(*args, power=cfg.power),
-                  lambda: spot_cuda.spot_checks_plain(*args, power=cfg.power),
-                  [got], [want],
-                  nbytes(raw5, tab5, ks4, ic1, ic0) + b * n * 4,
-                  [(b * n, ops[f"probe_spot{cfg.power}"])], reps)
+    n = cfg.spot_checks
+    # what a position needs: main row 2k (P, D, B) and P of row 2k+1, L, its
+    # position, five table rows (x, x^steps, Z, Z2, K); per proof the k-hash
+    # words and the two interpolant rows; out a word a position
+    moved = b * n * (96 + 32 + 32 + 8 + 5 * 32 + 4) + b * (128 + 2 * 64)
+    label = (f"B={b} positions={n} power={power} "
+             f"{'K rows' if k_rows else 'K table'}, {lanes} lane(s) a "
+             "position")
+    rec = measure(label,
+                  lambda: spot_cuda.spot_checks(*args, power=power,
+                                                lanes=lanes),
+                  lambda: spot_cuda.spot_checks_plain(*args, power=power),
+                  [got], [want], moved, [(b * n, ops[f"probe_spot{power}"])],
+                  reps)
     rec["pass_fractions"] = frac
     return rec
 
@@ -551,12 +621,35 @@ def kernel_phase(cfg, tables, ops):
         n, vw, _, levels = spec
         a_cases.append(check_walk(gen, ops, b, [spec],
                                   f"B={b} n={n} vw={vw} levels={levels}", 20))
-    b_cases = []
-    for l in range(nl):
-        d = dm - 2 * l                               # poly tree depth
-        b_cases.append(check_chain(gen, ops, b, q, d, d - 4, 20))
+    # kernel B: the five FRI poly quad groups of the shared walk in one
+    # launch (q quads of a tree of depth d walk d - 4 levels after their
+    # combine), then each group alone
+    b_quads = [(q, dm - 2 * l, dm - 2 * l - 4) for l in range(nl)]
+    b_cases = [check_quads(gen, ops, b, b_quads,
+                           "5 FRI poly quad groups, one launch", 20)]
+    for spec in b_quads:
+        b_cases.append(check_quads(
+            gen, ops, b, [spec], f"B={b} quads={spec[0]} depth={spec[1]} "
+            f"levels={spec[2]}", 20))
+    # interim: the prologue's rows loaded before the first hash
+    b_cases.append(check_quads(gen, ops, b, b_quads,
+                               "5 FRI poly quad groups, one launch, rows "
+                               "loaded first", 20,
+                               "stark_walk_quads_early_groups"))
+    b_cases.append(check_quads(gen, ops, b, b_quads[:1],
+                               f"B={b} quads={q} depth={dm} levels={dm - 4}, "
+                               "rows loaded first", 20,
+                               "stark_walk_quads_early_groups"))
     c_case = check_rows(gen, ops, tables, cfg, b, 20)
-    d_case = check_spot(gen, ops, cfg, b, 20)
+    # kernel D: power 3 on the static path first (the row's numbers), one
+    # thread a position beside it, power 2, and K rows (runtime statement)
+    tabs = spot_tables(tables, cfg)
+    d_cases = [check_spot(gen, ops, cfg, tabs, b, cfg.power, 20),
+               check_spot(gen, ops, cfg, tabs, b, cfg.power, 20, lanes=1),
+               check_spot(gen, ops, cfg, tabs, b, 2, 20),
+               check_spot(gen, ops, cfg, tabs, b, cfg.power, 20, k_rows=True),
+               check_spot(gen, ops, cfg, tabs, b, cfg.power, 20, k_rows=True,
+                          lanes=1)]
     # kernel E at the runtime-statement path's shapes (a boundary product of
     # one chunk and of the whole batch, every butterfly stage of the iNTT of
     # the 64 constants as ops/ntt.py slices it, its final scaling) and at a
@@ -615,12 +708,12 @@ def kernel_phase(cfg, tables, ops):
     return [
         record("walk_leaf_levels", src + "merkle_walk.cu",
                tpu + "merkle_pallas.py:180", a_cases),
-        record("chain_levels", src + "merkle_walk.cu",
+        record("walk_quads", src + "merkle_walk.cu",
                tpu + "merkle_pallas.py:198", b_cases),
         record("eval4_rows", src + "fri_rows.cu",
                tpu + "fri_pallas.py:92", [c_case]),
         record("spot_checks", src + "spot_checks.cu",
-               tpu + "spot_pallas.py:56", [d_case]),
+               tpu + "spot_pallas.py:56", d_cases),
         record("mul_mod", src + "field_mul.cu",
                tpu + "field_pallas.py:206", e_cases),
         record("walk_branches", src + "merkle_walk.cu",
@@ -802,11 +895,14 @@ def main_path(cfg, blob, tree_np, kernels):
     want = torch.ones(BATCH, dtype=torch.bool)
     want[1:1 + len(SITES)] = False
     verdicts = expect_verdicts("main path", verdicts, want)
-    shared = ("walk_leaf_levels", "chain_levels", "eval4_rows", "spot_checks")
+    shared = ("walk_leaf_levels", "walk_quads", "eval4_rows", "spot_checks")
     require_launches("main path", counts, shared, idle=("walk_branches",))
     if counts["walk_leaf_levels"] != 2 * (BATCH // CHUNK):
         fail(f"the main path launched kernel A {counts['walk_leaf_levels']} "
              f"times, expected 2 a chunk (main + lincomb; the column groups)")
+    if counts["walk_quads"] != BATCH // CHUNK:
+        fail(f"the main path launched kernel B {counts['walk_quads']} times, "
+             f"expected 1 a chunk (the five FRI poly quad groups)")
     for k in kernels:
         if k["name"] in shared:
             k["launches"], k["launches_on"] = counts[k["name"]], "main path"
@@ -843,7 +939,7 @@ def unshared_path(cfg, blob, tree_np, tree, want, kernels, consts, out):
     expect_verdicts("unshared path", verdicts, want)
     require_launches("unshared path", counts,
                      ("walk_branches", "eval4_rows", "spot_checks"),
-                     idle=("walk_leaf_levels", "chain_levels"))
+                     idle=("walk_leaf_levels", "walk_quads"))
     if counts["walk_branches"] != 2 * (BATCH // CHUNK):
         fail(f"the unshared path launched kernel F {counts['walk_branches']} "
              f"times, expected 2 a chunk (the FRI groups; main + lincomb)")
@@ -871,7 +967,7 @@ def unshared_path(cfg, blob, tree_np, tree, want, kernels, consts, out):
     verdicts, counts = counted(lambda: fn_r(ragged))
     expect_verdicts("padded batch", verdicts, want_r)
     require_launches("padded batch", counts, ("walk_branches",),
-                     idle=("walk_leaf_levels", "chain_levels"))
+                     idle=("walk_leaf_levels", "walk_quads"))
     # sent to the shared walk all the same, its depth guard rejects them all
     fn_s, _ = V.make_verifier(cfg, 3, device=DEV)
     expect_verdicts("padded batch on the shared walk", fn_s(ragged),
@@ -889,7 +985,7 @@ def unshared_path(cfg, blob, tree_np, tree, want, kernels, consts, out):
     if got is not expect or expect is not False:
         fail(f"verify_proof_bytes(ragged blob) = {got}, oracle {expect}")
     require_launches("ragged blob", counts, ("walk_branches",),
-                     idle=("walk_leaf_levels", "chain_levels"))
+                     idle=("walk_leaf_levels", "walk_quads"))
     log("verify_proof_bytes: ragged blob rejects, as the oracle does")
     return fn_u
 
@@ -941,7 +1037,7 @@ def runtime_statement_path(cfg, blob, tree, want, kernels, consts, out):
     verdicts, counts = counted(lambda: gfn(tree, inp_l, consts_l, out_l))
     expect_verdicts("runtime-statement path", verdicts, want)
     require_launches("runtime-statement path", counts,
-                     ("mul_mod", "walk_leaf_levels", "chain_levels",
+                     ("mul_mod", "walk_leaf_levels", "walk_quads",
                       "eval4_rows", "spot_checks"))
     for k in kernels:
         if k["name"] == "mul_mod":

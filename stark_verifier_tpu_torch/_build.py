@@ -36,7 +36,20 @@ class WalkGroup(ctypes.Structure):
     _fields_ = [("value", _p), ("sibling", _p), ("witness", _p),
                 ("tidx", _p), ("depth", _p), ("out", _p),
                 ("vstride", _ll), ("wit_stride", _ll), ("n", _ll),
-                ("vw", _i), ("levels", _i), ("first_block", _ll)]
+                ("vw", _i), ("levels", _i), ("first_block", _ll),
+                ("ok", _p)]
+
+
+class SpotArgs(ctypes.Structure):
+    """The operands of kernel D (csrc/spot_checks.cu, struct
+    stark_spot_args: the same fields in the same order)."""
+    _fields_ = [("main", _p), ("lin", _p), ("pos", _p), ("kh", _p),
+                ("ic1", _p), ("ic0", _p), ("g2", _p), ("z", _p), ("z2", _p),
+                ("k", _p), ("k_pos", _p), ("out", _p),
+                ("main_stride", _ll), ("lin_stride", _ll), ("kh_stride", _ll),
+                ("ic1_stride", _ll), ("ic0_stride", _ll), ("rows", _ll),
+                ("k_rows", _ll), ("group", _ll), ("n", _ll),
+                ("log_steps", _i), ("power", _i), ("lanes", _i)]
 
 
 _groups = ctypes.POINTER(WalkGroup)
@@ -44,9 +57,10 @@ _groups = ctypes.POINTER(WalkGroup)
 # int would be passed as a 32-bit int and cut the pointer)
 SIGNATURES = {
     "stark_walk_leaf_levels_groups": [_groups, _i, _p],
-    "stark_chain_levels": [_p, _p, _ll, _p, _p, _i, _ll, _p],
+    "stark_walk_quads_groups": [_groups, _i, _p],
+    "stark_walk_quads_early_groups": [_groups, _i, _p],
     "stark_eval4_rows": [_p, _p, _p, _p, _u32p, _u32p, _ll, _p, _ll, _p],
-    "stark_spot_checks": [_p, _p, _p, _p, _p, _ll, _i, _p, _ll, _p],
+    "stark_spot_checks": [ctypes.POINTER(SpotArgs), _p],
     "stark_mul_mod": [_p, _ll, _p, _ll, _p, _ll, _p],
     "stark_walk_branches_groups": [_groups, _i, _p],
 }

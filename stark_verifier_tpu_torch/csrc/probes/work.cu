@@ -10,18 +10,13 @@
 //                          and squared;
 //   probe_eval4_special_x  kernel C, one (proof, level): special_x's
 //                          canonicalization and square, once;
-//   probe_spot3 / 2        kernel D, one position;
+//   probe_spot3 / 2        kernel D, one position (its four parts);
 //   probe_mul              kernel E, one element.
 #include "../field_mul.cu"
 #include "../fri_rows.cu"
 #include "../spot_checks.cu"
 
 #define PROBE_STRIDE 16  // field elements of input a thread
-
-struct probe_operands {
-  const fe* v;
-  __device__ fe operator()(int j) const { return v[j]; }
-};
 
 extern "C" __global__ void probe_copy(const fe* in, fe* out) {
   out[threadIdx.x] = in[threadIdx.x * PROBE_STRIDE];
@@ -41,14 +36,38 @@ extern "C" __global__ void probe_eval4_special_x(const fe* in, fe* out) {
   out[2 * threadIdx.x + 1] = sx2;
 }
 
+// Kernel D, one position as the sum of its four parts (csrc/spot_checks.cu),
+// each part compiled for its own role so that the product it does not use
+// is left out: what a position needs, whichever lanes run it.  Operands:
+// 0..4 P(x), P(g1 x), D(x), B(x), L(x), raw; 5..9 x, x^steps, Z, Z2, K;
+// 10..13 k1..k4, raw; 14, 15 I1, I0.
+template <int POWER>
+__device__ uint32_t probe_spot(const fe* v) {
+  const fe p = fe_canon(v[0]), pg1 = fe_canon(v[1]), d = fe_canon(v[2]);
+  const fe b = fe_canon(v[3]), l = fe_canon(v[4]);
+  fe zero;
+  for (int j = 0; j < 8; ++j) zero.v[j] = 0;
+  const stark_spot_part_in t = {p, v[6], v[6], v[7], d, v[9], pg1};
+  const stark_spot_part_in bd = {b, v[6], v[8], v[14], v[5], v[15], p};
+  const stark_spot_part_in l1 = {p, v[6], v[10], v[11], v[5], zero, l};
+  const stark_spot_part_in l2 = {b, v[6], v[12], v[13], v[5], d, l};
+  fe_acc a0, a1, a2, a3;
+  stark_spot_part<POWER>(0, t, a0);
+  stark_spot_part<POWER>(1, bd, a1);
+  stark_spot_part<POWER>(2, l1, a2);
+  stark_spot_part<POWER>(3, l2, a3);
+  fe_acc_add_acc(a2, a3);
+  return (fe_eq(pg1, fe_reduce(a0)) ? 1u : 0u) |
+         (fe_eq(p, fe_reduce(a1)) ? 2u : 0u) |
+         (fe_eq(l, fe_reduce(a2)) ? 4u : 0u);
+}
+
 extern "C" __global__ void probe_spot3(const fe* in, uint32_t* out) {
-  probe_operands v = {in + threadIdx.x * PROBE_STRIDE};
-  out[threadIdx.x] = stark_spot_core<3>(v);
+  out[threadIdx.x] = probe_spot<3>(in + threadIdx.x * PROBE_STRIDE);
 }
 
 extern "C" __global__ void probe_spot2(const fe* in, uint32_t* out) {
-  probe_operands v = {in + threadIdx.x * PROBE_STRIDE};
-  out[threadIdx.x] = stark_spot_core<2>(v);
+  out[threadIdx.x] = probe_spot<2>(in + threadIdx.x * PROBE_STRIDE);
 }
 
 extern "C" __global__ void probe_mul(const fe* in, fe* out) {

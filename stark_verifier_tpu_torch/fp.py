@@ -93,6 +93,13 @@ def bytes_to_le_words(b: np.ndarray) -> np.ndarray:
     return b4[..., 0] | (b4[..., 1] << 8) | (b4[..., 2] << 16) | (b4[..., 3] << 24)
 
 
+def limbs_to_le_words(limbs: np.ndarray) -> np.ndarray:
+    """[..., 16] limbs -> [..., 8] uint32 little-endian 32-bit limbs (the
+    packed rows the spot-check kernel gathers from)."""
+    l = np.asarray(limbs, dtype=np.uint32)
+    return np.ascontiguousarray(l[..., 0::2] | (l[..., 1::2] << 16))
+
+
 def pow2_table(base: int, nbits: int, modulus: int = MODULUS) -> np.ndarray:
     """[nbits, NLIMBS] table of base^(2^i) mod p, for data-dependent exponents."""
     vals = []

@@ -80,6 +80,19 @@ def limbs_to_words_be(limbs: torch.Tensor) -> torch.Tensor:
     return bswap32(sw.flip(-1))
 
 
+def words_le_to_limbs(words: torch.Tensor) -> torch.Tensor:
+    """[..., 8] little-endian 32-bit limbs (the kernels' packed rows) ->
+    [..., 16] 16-bit limbs."""
+    lo = words & MASK
+    hi = (words >> 16) & MASK
+    return torch.stack([lo, hi], dim=-1).reshape(*words.shape[:-1], 16)
+
+
+def limbs_to_words_le(limbs: torch.Tensor) -> torch.Tensor:
+    """Inverse of words_le_to_limbs: [..., 16] limbs -> [..., 8] words."""
+    return limbs[..., 0::2] | (limbs[..., 1::2] << 16)
+
+
 # ---------------------------------------------------------------------------
 # Carry normalization
 # ---------------------------------------------------------------------------

@@ -198,10 +198,11 @@ def _dense_agree_minmax(vals: torch.Tensor, o: torch.Tensor, width: int):
 
 
 def _shared_bottom(group: dict) -> dict:
-    """Leaf hash + full-width lower levels, up to the switchover.  A
-    non-quad group's leaf hash and levels are left to the caller as
-    st["walk"], one group of a walk_leaf_levels_groups launch; a quad
-    group's are done here."""
+    """Index arithmetic, guards and the launch operands of one group's leaf
+    hash and full-width lower levels, up to the switchover: st["walk"] for a
+    non-quad group (one group of a walk_leaf_levels_groups launch),
+    st["quad"] for a quad group (one group of a walk_quads_groups launch).
+    The caller launches them and puts the digests in st["res"]."""
     indices = group["indices"].to(torch.int64)
     witness = group["witness"]                  # [..., n, w, 8]
     w = witness.shape[-2]
@@ -227,10 +228,12 @@ def _shared_bottom(group: dict) -> dict:
         # y_k + (rou_deg/4)*i, whose PERMUTED index is 4*y_k + i
         # (main.rs:62-66 + merkle_tree.rs:112-116) -- the four branches of a
         # query are the four leaves of one level-2 subtree node and share
-        # every witness above it.  Walk the subtree once per query: two leaf
-        # pair-hashes + one combine instead of four full walks, with
-        # equality checks wherever a dropped branch's own data would have
-        # been used by its independent walk.
+        # every witness above it.  Kernel B walks the subtree once per query:
+        # two leaf pair-hashes, the check that each branch's first witness is
+        # the OTHER pair's digest (what its independent walk hashes against),
+        # one combine, then the levels up to the switchover.  The equality
+        # checks below cover what else a dropped branch's own data would
+        # have fed its independent walk.
         q4 = n // 4
         lead4 = idx.shape[:-1] + (q4, 4)
         idx4 = idx.reshape(lead4)
@@ -249,36 +252,21 @@ def _shared_bottom(group: dict) -> dict:
         pair_ok = ((val4[..., 0::2, :] == sib4[..., 1::2, :])
                    & (sib4[..., 0::2, :] == val4[..., 1::2, :]))
         ok = ok & pair_ok.flatten(-3).all(dim=-1)
-        # both pair hashes in one call: branches 0 and 2 of every quad
-        n0123 = blake2s.hash_leaf_pair(val4[..., 0::2, :], sib4[..., 0::2, :])
-        n01, n23 = n0123[..., 0, :], n0123[..., 1, :]
-        wit4 = witness.reshape(lead4 + witness.shape[-2:])
-        # level-1: each branch's own first witness must equal the computed
-        # state of the OTHER pair (what its independent walk hashes against)
-        w0 = wit4[..., 0, :]                    # [..., q4, 4, 8]
-        first_ok = ((w0[..., 0:2, :] == n23[..., None, :])
-                    & (w0[..., 2:4, :] == n01[..., None, :]))
-        ok = ok & first_ok.flatten(-3).all(dim=-1)
-        res = blake2s.hash_pair(n01, n23)       # [..., q4, 8]
         # all four branches must present identical witnesses at every
         # remaining level (each independent walk consumes its own copy)
+        wit4 = witness.reshape(lead4 + witness.shape[-2:])
         if w > 1:
             ok = ok & (wit4[..., 1:, 1:, :]
                        == wit4[..., 0:1, 1:, :]).flatten(-4).all(dim=-1)
-        ti0 = ti0.reshape(lead4)[..., 0]        # b0's start index, [..., q4]
-        ti = ti0 >> 2
-        witness = wit4[..., 0, :, :]            # [..., q4, w, 8] strided view
         n_eff, consumed = q4, 2
         t0 = max(consumed, w - min(_flog2(max(1, n_eff - 1)), TAIL_CAP))
-        if t0 > consumed:
-            # pair + combine above in plain torch, the remaining full-width
-            # levels in the chain kernel
-            res = merkle_cuda.chain_levels(
-                res.contiguous(), witness[..., consumed - 1:t0 - 1, :],
-                ti.to(torch.int32), levels=t0 - consumed)
-            ti = ti >> (t0 - consumed)
-        st.update(ok=ok, n=n_eff, t0=t0, ti=ti, wit=witness, ti0=ti0,
-                  res=res)
+        # the pair hashes, their combine and levels consumed .. t0-1 in
+        # kernel B (digests stay in registers), from b0's start index
+        st["quad"] = (val.contiguous(), sib.contiguous(), witness,
+                      ti0.to(torch.int32), t0 - consumed)
+        ti0 = ti0.reshape(lead4)[..., 0]        # b0's start index, [..., q4]
+        st.update(ok=ok, n=n_eff, t0=t0, ti=ti0 >> t0,
+                  wit=wit4[..., 0, :, :], ti0=ti0)   # [..., q4, w, 8] view
     return st
 
 
@@ -339,11 +327,17 @@ def verify_groups_shared(groups: list) -> list:
     dense tails stack into one Blake2s call per tree level.
     """
     sts = [_shared_bottom(g) for g in groups]
-    # the leaf walks of every non-quad group in one launch of kernel A
+    # the leaf walks of every non-quad group in one launch of kernel A, of
+    # every quad group in one launch of kernel B
     walking = [st for st in sts if "walk" in st]
     for st, res in zip(walking, merkle_cuda.walk_leaf_levels_groups(
             [st.pop("walk") for st in walking])):
         st["res"] = res
+    quads = [st for st in sts if "quad" in st]
+    for st, (res, first_ok) in zip(quads, merkle_cuda.walk_quads_groups(
+            [st.pop("quad") for st in quads])):
+        st["res"] = res
+        st["ok"] = st["ok"] & (first_ok != 0).all(dim=-1)
     for st in sts:
         _switchover(st)
     for j in range(max(st["tail_len"] for st in sts) - 1, -1, -1):

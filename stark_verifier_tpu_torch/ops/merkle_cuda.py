@@ -1,16 +1,20 @@
 """Merkle branch walks on the card: walk_leaf_levels (kernel A),
-chain_levels (kernel B) and walk_branches (kernel F), each with its plain
+walk_quads (kernel B) and walk_branches (kernel F), each with its plain
 PyTorch version.
 
 Counterpart of the JAX package's ops/merkle_pallas.py.  A and B are the
-full-width lower levels of the shared-path walk (ops/merkle._shared_bottom);
-F is the whole independent walk of a branch with its own depth, which
+full-width lower levels of the shared-path walk (ops/merkle._shared_bottom):
+A for plain groups, B for the FRI poly groups, whose branches come in
+sibling quads and which B walks from the quads' leaves (the JAX package's
+chain_levels starts from digests that plain JAX hashed first).  F is the
+whole independent walk of a branch with its own depth, which
 ops/merkle.verify_branches runs for unshared and ragged groups.  The kernels
-live in csrc/merkle_walk.cu: one thread per branch, reading the branch's rows
-straight from the proof tree's layout.  A and F walk a list of groups in one
-launch (walk_leaf_levels_groups, walk_branches_groups); the one-group
-wrappers are such lists of one.  A wrapper launches its kernel for a CUDA
-tensor (or raises) and takes the plain version only for a CPU tensor.
+live in csrc/merkle_walk.cu: one thread per branch (per quad for B), reading
+the rows straight from the proof tree's layout.  Each walks a list of groups
+in one launch (walk_leaf_levels_groups, walk_quads_groups,
+walk_branches_groups); the one-group wrappers are such lists of one.  A
+wrapper launches its kernel for a CUDA tensor (or raises) and takes the
+plain version only for a CPU tensor.
 """
 
 from __future__ import annotations
@@ -21,9 +25,9 @@ from .. import _build
 from . import blake2s
 
 # launches per kernel since the last reset (chip_smoke.py reads these)
-launches = {"walk_leaf_levels": 0, "chain_levels": 0, "walk_branches": 0}
+launches = {"walk_leaf_levels": 0, "walk_quads": 0, "walk_branches": 0}
 
-# groups a launch of A or F (csrc/merkle_walk.cu: STARK_WALK_MAX_GROUPS)
+# groups a launch of A, B or F (csrc/merkle_walk.cu: STARK_WALK_MAX_GROUPS)
 MAX_GROUPS = 32
 
 
@@ -90,8 +94,30 @@ def walk_leaf_levels_plain(value_words, sibling_words, witness_words,
 
 
 def chain_levels_plain(h, witness_words, tree_index, levels: int):
-    """Plain version of chain_levels."""
+    """`levels` witness levels from running digests h [..., 8]; tree_index
+    is the CURRENT (already halved) index: the JAX package's chain_levels,
+    whose work kernel B does after the quads' leaves."""
     return _chain_plain(h, witness_words, tree_index, levels)
+
+
+def walk_quads_plain(value_words, sibling_words, witness_words, tree_index,
+                     levels: int):
+    """Plain version of walk_quads: the quads' two leaf pair-hashes, the
+    first-level check, their combine, then chain_levels_plain."""
+    lead4 = value_words.shape[:-2] + (value_words.shape[-2] // 4, 4)
+    val4 = value_words.reshape(lead4 + value_words.shape[-1:])
+    sib4 = sibling_words.reshape(lead4 + sibling_words.shape[-1:])
+    wit4 = witness_words.reshape(lead4 + witness_words.shape[-2:])
+    # branches 0 and 2 of every quad in one call: their tree indices are even
+    n0123 = blake2s.hash_leaf_pair(val4[..., 0::2, :], sib4[..., 0::2, :])
+    n01, n23 = n0123[..., 0, :], n0123[..., 1, :]
+    w0 = wit4[..., 0, :]                        # [..., q, 4, 8]
+    ok = ((w0[..., 0:2, :] == n23[..., None, :]).all(dim=-1).all(dim=-1)
+          & (w0[..., 2:4, :] == n01[..., None, :]).all(dim=-1).all(dim=-1))
+    res = blake2s.hash_pair(n01, n23)
+    ti = tree_index.reshape(lead4)[..., 0] >> 2
+    return (_chain_plain(res, wit4[..., 0, 1:, :], ti, levels),
+            ok.to(torch.int32))
 
 
 def _launch(entry: str, name: str, descs: list, dev) -> None:
@@ -168,34 +194,68 @@ def walk_leaf_levels(value_words, sibling_words, witness_words, tree_index,
         [(value_words, sibling_words, witness_words, tree_index, levels)])[0]
 
 
-def chain_levels(h, witness_words, tree_index, levels: int):
-    """`levels` witness levels from running digests h [..., 8]; tree_index is
-    the CURRENT (already-halved) index.  witness_words [..., >=levels, 8] may
-    be a strided view (a level slice of one branch in four).  Returns the
-    [..., 8] digests."""
-    if h.device.type == "cpu":
-        return chain_levels_plain(h, witness_words, tree_index, levels)
-    dev = h.device
-    lead = h.shape[:-1]
-    for t, name in ((h, "h"), (witness_words, "witness"),
-                    (tree_index, "tree_index")):
-        _check_words(t, name, dev)
-    if h.shape[-1] != 8 or tree_index.shape != lead:
-        raise ValueError("h / tree_index shapes disagree")
-    if witness_words.shape[:-2] != lead:
-        raise ValueError("witness leading dims disagree with h")
-    stride = _witness_stride(witness_words, len(lead), levels)
-    out = torch.empty(lead + (8,), dtype=torch.int32, device=dev)
-    lib = _build.load()
-    with torch.cuda.device(dev):
-        rc = lib.stark_chain_levels(
-            _dense(h, "h").data_ptr(), witness_words.data_ptr(), stride,
-            _dense(tree_index, "tree_index").data_ptr(), out.data_ptr(),
-            levels, out.numel() // 8,
-            torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(rc, "stark_chain_levels")
-    launches["chain_levels"] += 1
-    return out
+def walk_quads_groups(groups: list, _entry="stark_walk_quads_groups") -> list:
+    """walk_quads over several groups in one launch of kernel B.
+
+    groups: (value, sibling, witness, tree_index, levels) tuples, each as
+    walk_quads takes them.  Returns one (digests [..., q, 8], ok [..., q])
+    pair a group.  On the CPU, the plain version group by group."""
+    if not groups:
+        return []
+    dev = groups[0][0].device
+    if dev.type == "cpu":
+        return [walk_quads_plain(*g) for g in groups]
+    descs, outs = [], []
+    for value_words, sibling_words, witness_words, tree_index, levels in groups:
+        lead = value_words.shape[:-1]
+        vw = value_words.shape[-1]
+        for t, name in ((value_words, "value"), (sibling_words, "sibling"),
+                        (witness_words, "witness"),
+                        (tree_index, "tree_index")):
+            _check_words(t, name, dev)
+        if vw not in (8, 24):
+            raise ValueError(f"value width {vw} words: the kernel takes 8 or 24")
+        if not lead or lead[-1] % 4:
+            raise ValueError("walk_quads: the branch count must be a "
+                             "multiple of 4")
+        if sibling_words.shape != value_words.shape or tree_index.shape != lead:
+            raise ValueError("value / sibling / tree_index shapes disagree")
+        if witness_words.shape[:-2] != lead:
+            raise ValueError("witness leading dims disagree with value")
+        # every quad's first witness row, then `levels` rows of its branch 0
+        stride = _witness_stride(witness_words, len(lead), levels + 1)
+        quads = lead[:-1] + (lead[-1] // 4,)
+        out = torch.empty(quads + (8,), dtype=torch.int32, device=dev)
+        ok = torch.empty(quads, dtype=torch.int32, device=dev)
+        outs.append((out, ok))
+        if out.numel():
+            desc = _group(
+                _dense(value_words, "value"), _dense(sibling_words, "sibling"),
+                witness_words, _dense(tree_index, "tree_index"), None, out,
+                vw, stride, levels)
+            desc.ok = ok.data_ptr()
+            descs.append(desc)
+    if descs:
+        _launch(_entry, "walk_quads", descs, dev)
+    return outs
+
+
+def walk_quads(value_words, sibling_words, witness_words, tree_index,
+               levels: int):
+    """The sibling quads of a RECTANGULAR group from their leaves: branches
+    4q .. 4q+3 of the last leading dim are the four leaves of one level-2
+    node, branch 4q's tree index is even (4-aligned), and b's sibling is b+1's
+    value (the caller checks both).
+
+    value/sibling [..., 4q, vw] (vw = 8 or 24); witness_words [..., 4q,
+    >=levels+1, 8]; tree_index [..., 4q] the 2^(w+2)+permuted start index
+    (int32, < 2^31).  Returns (digests [..., q, 8] after the combine and
+    `levels` more levels of branch 4q's witness, ok [..., q] int32: 1 where
+    branches 4q, 4q+1 carry H(v2 || s2) and 4q+2, 4q+3 carry H(v0 || s0) as
+    their first witness, else 0).  A one-group launch of
+    walk_quads_groups."""
+    return walk_quads_groups(
+        [(value_words, sibling_words, witness_words, tree_index, levels)])[0]
 
 
 def walk_branches_plain(value_words, sibling_words, witness_words, tree_index,

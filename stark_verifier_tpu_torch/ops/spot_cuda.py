@@ -8,9 +8,18 @@ verify_mimc_proof (reference verifier: src/main.rs:163-192):
   transition   P(g1 x) == P(x)^power + K(x) + Z(x) D(x)
   boundary     P(x)    == B(x) Z2(x) + I1 x + I0
   lincomb      L(x)    == D(x) + k1 P + k2 P x^s + k3 B + k4 B x^s
+
+The JAX function takes its operands as 16-bit limbs that the verifier
+converts, gathers and stacks first (spot_limbs_plain is its counterpart).
+spot_checks takes them where they lie: the proof's main and lincomb value
+rows, the spot positions, the raw k-hash words, and the statement tables
+packed to 8 little-endian words a row (SpotTables), from which the kernel
+gathers x, x^steps, Z, Z2 and K itself.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -21,11 +30,27 @@ from .field_cuda import mul_mod_plain as _mul
 launches = {"spot_checks": 0}
 
 
-def spot_checks_plain(raw5, tab5, ks4, ic1, ic0, power: int = 3):
-    """Plain version of spot_checks: canonicalize the five trace values, then
-    each right-hand side as one mul_sum_mod, compared limb for limb.  The
-    single products go through the multiply's plain version on either
-    device."""
+class SpotTables(NamedTuple):
+    """The statement tables kernel D gathers from, [rows, 8] int32 words of
+    little-endian 32-bit limbs, canonical: g2 the powers of G2, z and z2 the
+    Z and Z2 tables (all `precision` rows, a power of two), k the K table
+    (k_period rows, a power of two); log_steps gives x^steps = g2[pos <<
+    log_steps]."""
+    g2: torch.Tensor
+    z: torch.Tensor
+    z2: torch.Tensor
+    k: torch.Tensor
+    log_steps: int
+
+
+def spot_limbs_plain(raw5, tab5, ks4, ic1, ic0, power: int = 3):
+    """The three checks on limb operands, as the JAX function takes them:
+    raw5 [..., 5, 16] raw trace limbs (P, Pg1, D, B, L); tab5 [..., 5, 16]
+    canonical (x, x^steps, Z, Z2, K); ks4 [..., 4, 16] raw k1..k4; ic1/ic0
+    [..., 16] canonical (anything that broadcasts).  Canonicalize the five
+    trace values, then each right-hand side as one mul_sum_mod, compared
+    limb for limb.  The single products go through the multiply's plain
+    version on either device.  Returns ok [..., 3] bool."""
     if power not in (2, 3):
         raise ValueError(f"unsupported transition power {power}")
     p, pg1, d, b, l = (F.canon(raw5[..., i, :]) for i in range(5))
@@ -48,53 +73,125 @@ def spot_checks_plain(raw5, tab5, ks4, ic1, ic0, power: int = 3):
     return torch.stack([ok_t, ok_b, ok_l], dim=-1)
 
 
-def spot_checks(raw5, tab5, ks4, ic1, ic0, power: int = 3):
-    """Fused transition/boundary/lincomb checks.
+def spot_checks_plain(main_value, lincomb_value, positions, kh, ic1, ic0,
+                      tables: SpotTables, k_rows=None, power: int = 3):
+    """Plain version of spot_checks: the limbs and gathers the kernel makes
+    in registers, made as tensors, then spot_limbs_plain.  Table indices are
+    masked as the kernel masks them (the verifier's positions are in range,
+    where masking changes nothing)."""
+    n = positions.shape[-1]
+    mv = main_value.reshape(*main_value.shape[:-2], n, 2, 3, 8)
+    raw5 = torch.stack([F.words_be_to_limbs(w) for w in (
+        mv[..., 0, 0, :], mv[..., 1, 0, :], mv[..., 0, 1, :],
+        mv[..., 0, 2, :], lincomb_value)], dim=-2)         # [..., n, 5, 16]
+    pos = positions.to(torch.int64)
+    mask = tables.g2.shape[0] - 1
+    if k_rows is None:
+        k = tables.k[pos & (tables.k.shape[0] - 1)]
+    else:
+        k = k_rows
+    tab = [tables.g2[pos & mask], tables.g2[(pos << tables.log_steps) & mask],
+           tables.z[pos & mask], tables.z2[pos & mask], k]
+    tab5 = torch.stack([F.words_le_to_limbs(t) for t in tab], dim=-2)
+    ks4 = F.words_be_to_limbs(kh)[..., None, :, :]         # [..., 1, 4, 16]
+    return spot_limbs_plain(raw5, tab5, ks4, ic1[..., None, :],
+                            ic0[..., None, :], power)
 
-    raw5: [..., 5, 16] raw trace limbs (P, Pg1, D, B, L); tab5 [..., 5, 16]
-    canonical gathers (x, x^steps, Z, Z2, K); ks4 [..., 4, 16] raw k1..k4
-    and ic1/ic0 [..., 16] canonical boundary interpolant coefficients, each
-    with 1 in place of the position dim (one row per proof; the plain
-    version takes anything that broadcasts); power: transition exponent
-    (2 or 3).  Returns ok [..., 3] bool."""
-    if raw5.device.type == "cpu":
-        return spot_checks_plain(raw5, tab5, ks4, ic1, ic0, power)
+
+def _proof_stride(t: torch.Tensor, nlead: int, name: str) -> int:
+    """Word stride between consecutive proofs of `t`, whose first `nlead`
+    dims index the proofs (they must collapse to one stride) and whose
+    other dims are dense."""
+    inner = t.shape[nlead:]
+    dense = 1
+    for size, stride in zip(reversed(inner), reversed(t.stride()[nlead:])):
+        if size > 1 and stride != dense:
+            raise ValueError(f"spot_checks: {name} rows must be dense")
+        dense *= size
+    for d in range(nlead - 1):
+        if t.shape[d] > 1 and t.stride(d) != t.stride(d + 1) * t.shape[d + 1]:
+            raise ValueError(
+                f"spot_checks: {name}'s proof dims do not collapse to one "
+                "stride")
+    return t.stride(nlead - 1) if nlead else 0
+
+
+def _spot_args(main_value, lincomb_value, positions, kh, ic1, ic0,
+               tables: SpotTables, k_rows, power: int, lanes: int) -> tuple:
+    """(the kernel's SpotArgs, the bits [..., n] it writes, the tensors the
+    arguments point into) for spot_checks' operands on their device.  The
+    tensors must outlive the launch."""
+    dev = positions.device
+    lead, n = positions.shape[:-1], positions.shape[-1]
+    nlead = len(lead)
+    words = {"main_value": main_value, "lincomb_value": lincomb_value,
+             "kh": kh, "ic1": ic1, "ic0": ic0, "g2": tables.g2,
+             "z": tables.z, "z2": tables.z2, "k": tables.k}
+    if k_rows is not None:
+        words["k_rows"] = k_rows
+    for name, t in words.items():
+        if t.dtype != torch.int32 or t.device != dev:
+            raise TypeError(f"spot_checks: {name}: expected int32 on {dev}, "
+                            f"got {t.dtype} on {t.device}")
+    if positions.dtype != torch.int64:
+        raise TypeError("spot_checks: positions must be int64")
+    if (main_value.shape != lead + (2 * n, 24)
+            or lincomb_value.shape != lead + (n, 8)
+            or kh.shape != lead + (4, 8)
+            or (k_rows is not None and k_rows.shape != lead + (n, 8))):
+        raise ValueError("spot_checks: operand shapes disagree")
+    ic1, ic0 = ic1.expand(lead + (16,)), ic0.expand(lead + (16,))
+    for name in ("g2", "z", "z2", "k"):
+        t = words[name]
+        if t.dim() != 2 or t.shape[1] != 8 or not t.is_contiguous():
+            raise ValueError(f"spot_checks: table {name} must be dense "
+                             "[rows, 8]")
+    rows = tables.g2.shape[0]
+    if tables.z.shape[0] != rows or tables.z2.shape[0] != rows:
+        raise ValueError("spot_checks: g2 / z / z2 tables differ in rows")
+    positions = positions.contiguous()
+    k_rows = None if k_rows is None else k_rows.contiguous()
+    bits = torch.empty(lead + (n,), dtype=torch.int32, device=dev)
+    args = _build.SpotArgs(
+        main_value.data_ptr(), lincomb_value.data_ptr(), positions.data_ptr(),
+        kh.data_ptr(), ic1.data_ptr(), ic0.data_ptr(), tables.g2.data_ptr(),
+        tables.z.data_ptr(), tables.z2.data_ptr(), tables.k.data_ptr(),
+        None if k_rows is None else k_rows.data_ptr(), bits.data_ptr(),
+        _proof_stride(main_value, nlead, "main_value"),
+        _proof_stride(lincomb_value, nlead, "lincomb_value"),
+        _proof_stride(kh, nlead, "kh"), _proof_stride(ic1, nlead, "ic1"),
+        _proof_stride(ic0, nlead, "ic0"), rows, tables.k.shape[0], n,
+        bits.numel(), tables.log_steps, power, lanes)
+    return args, bits, (positions, k_rows)
+
+
+def spot_checks(main_value, lincomb_value, positions, kh, ic1, ic0,
+                tables: SpotTables, k_rows=None, power: int = 3,
+                lanes: int = 4):
+    """Fused transition / boundary / lincomb checks at every spot position.
+
+    main_value [..., 2n, 24] the main trace's value rows (rows 2k, 2k+1 at
+    position k and its g1 neighbour) and lincomb_value [..., n, 8], raw
+    proof words; positions [..., n] int64; kh [..., 4, 8] the raw k1..k4
+    hash words; ic1/ic0 [..., 16] canonical limbs of the boundary
+    interpolant; tables the packed statement tables; k_rows [..., n, 8]
+    packed K(x) rows in place of the K table's, or None; power: transition
+    exponent (2 or 3); lanes: 4 (a position's four parts on four lanes) or
+    1 (one thread a position).  Returns ok [..., n, 3] bool."""
     if power not in (2, 3):
         raise ValueError(f"unsupported transition power {power}")
-    dev = raw5.device
-    lead = raw5.shape[:-2]
-    for t, name in ((raw5, "raw5"), (tab5, "tab5"), (ks4, "ks4"),
-                    (ic1, "ic1"), (ic0, "ic0")):
-        if t.dtype != torch.int32 or t.device != dev:
-            raise TypeError(f"{name}: expected int32 on {dev}, got {t.dtype} "
-                            f"on {t.device}")
-    if raw5.shape != lead + (5, 16) or tab5.shape != lead + (5, 16):
-        raise ValueError("spot_checks: raw5 / tab5 shapes disagree")
-    # k1..k4 and the interpolant coefficients are per proof: one row for the
-    # `group` consecutive positions of the last leading dim
-    if not lead:
-        raise ValueError("spot_checks: raw5 needs a position dim")
-    per_proof = lead[:-1] + (1,)
-    if (ks4.shape != per_proof + (4, 16) or ic1.shape != per_proof + (16,)
-            or ic0.shape != per_proof + (16,)):
-        raise ValueError(
-            "spot_checks: on the card ks4 / ic1 / ic0 must hold one row per "
-            f"proof, shapes {per_proof + (4, 16)} / {per_proof + (16,)}; got "
-            f"{tuple(ks4.shape)} / {tuple(ic1.shape)} / {tuple(ic0.shape)}")
-    group = lead[-1]
-    raw5, tab5, ks4, ic1, ic0 = (t.contiguous()
-                                 for t in (raw5, tab5, ks4, ic1, ic0))
-    bits = torch.empty(lead, dtype=torch.int32, device=dev)
-    for t in (raw5, tab5, ks4, ic1, ic0):
-        if t.data_ptr() % 16:
-            raise ValueError("spot_checks: operands must be 16-byte aligned")
+    if positions.device.type == "cpu":
+        return spot_checks_plain(main_value, lincomb_value, positions, kh,
+                                 ic1, ic0, tables, k_rows, power)
+    dev = positions.device
+    args, bits, keep = _spot_args(main_value, lincomb_value, positions, kh,
+                                  ic1, ic0, tables, k_rows, power, lanes)
     lib = _build.load()
     with torch.cuda.device(dev):
         rc = lib.stark_spot_checks(
-            raw5.data_ptr(), tab5.data_ptr(), ks4.data_ptr(), ic1.data_ptr(),
-            ic0.data_ptr(), group, power, bits.data_ptr(), bits.numel(),
-            torch.cuda.current_stream(dev).cuda_stream)
+            args, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "stark_spot_checks")
     launches["spot_checks"] += 1
+    del keep        # the launch is queued: the copies may go back to the pool
     return torch.stack([(bits & 1) != 0, (bits & 2) != 0, (bits & 4) != 0],
                        dim=-1)

@@ -72,6 +72,23 @@ def _table(tables, name: str, device) -> torch.Tensor:
     return to_tensor(t, device)
 
 
+# the statement tables kernel D gathers from, packed to 8 little-endian
+# words a row: (buffer of a verifier module, StatementTables field)
+_SPOT_TABLES = (("g2_words", "g2_powers"), ("z_words", "z_table"),
+                ("z2_words", "z2_table"), ("k_words", "k_table"))
+
+
+def _spot_tables(tables, cfg: StarkConfig, device) -> spot_cuda.SpotTables:
+    """The packed tables: the verifier module's buffers when `tables` is
+    one, else packed afresh from the host limb arrays."""
+    if isinstance(tables, nn.Module):
+        rows = [getattr(tables, name) for name, _ in _SPOT_TABLES]
+    else:
+        rows = [to_tensor(fp.limbs_to_le_words(getattr(tables, src)), device)
+                for _, src in _SPOT_TABLES]
+    return spot_cuda.SpotTables(*rows, log_steps=cfg.log_steps)
+
+
 def _fri_checks(l_root_words, fri, tables, cfg: StarkConfig,
                 shared_merkle: bool = True, ys=None):
     """Complete FRI low-degree check, inversion-free.
@@ -272,8 +289,7 @@ def verify_mimc_proof(tree, inp, output_limbs, tables, cfg: StarkConfig,
         [mroot[..., None, :].expand(mroot.shape[:-1] + (4, 8)),
          kbytes[:, None].expand(mroot.shape[:-1] + (4, 1))],
         dim=-1)                                            # [..., 4, 9]
-    kh = blake2s.hash_words(kin, 33)                       # [..., 4, 8]
-    ks4 = F.words_be_to_limbs(kh)                          # [..., 4, 16] raw
+    kh = blake2s.hash_words(kin, 33)                       # [..., 4, 8] raw
 
     # spot-check positions from l_merkle_root (main.rs:148-156)
     positions = prg.indices_from_entries(
@@ -293,41 +309,20 @@ def verify_mimc_proof(tree, inp, output_limbs, tables, cfg: StarkConfig,
             (mroot, augmented, tree["main"]),
             (tree["l_merkle_root"], positions, tree["lincomb"])]))
 
-    # trace values: 96-byte leaves = P(x) || D(x) || B(x)  (main.rs:163-174)
-    mv = tree["main"]["value"]                             # [..., 160, 24]
-    mv = mv.reshape(*mv.shape[:-2], cfg.spot_checks, 2, 3, 8)
-    p_raw = F.words_be_to_limbs(mv[..., 0, 0, :])          # [..., 80, 16]
-    pg1_raw = F.words_be_to_limbs(mv[..., 1, 0, :])
-    d_raw = F.words_be_to_limbs(mv[..., 0, 1, :])
-    b_raw = F.words_be_to_limbs(mv[..., 0, 2, :])
-    l_raw = F.words_be_to_limbs(tree["lincomb"]["value"])
-
-    # x = G2^pos and x^steps = G2^(steps*pos mod precision): gathers from the
-    # master power table replace square-and-multiply (main.rs:164-166)
-    g2t = _table(tables, "g2_powers", dev)
-    mask = cfg.precision - 1
-    x = g2t[positions]                                     # [..., 80, 16]
-    x_to_steps = g2t[(positions << cfg.log_steps) & mask]
-
-    # Z(x) = (x^steps - 1) / (x - last_step_position)  (main.rs:175-176) and
-    # Z2(x) = (x-1)(x-last) (main.rs:185) take one value per domain position:
-    # host-precomputed table gathers -- no inversion anywhere
-    z = _table(tables, "z_table", dev)[positions]
-    z2_at_x = _table(tables, "z2_table", dev)[positions]
-    # K(x) = minipoly(x^skips2) takes only k_period distinct values -- table
-    # lookup by pos mod period (main.rs:177-178); with runtime constants the
-    # minipoly comes from an iNTT instead
-    if constants_limbs is None:
-        k_of_x = _table(tables, "k_table", dev)[
-            positions & (tables.k_period - 1)]
-    else:
+    # K(x) = minipoly(x^skips2) takes only k_period distinct values: the spot
+    # kernel looks it up by pos mod period (main.rs:177-178) in the packed K
+    # table; with runtime constants the minipoly comes from an iNTT instead
+    # and K(x) is evaluated here, one packed row a position
+    k_rows = None
+    if constants_limbs is not None:
         if constants_limbs.shape != (cfg.num_constants, fp.NLIMBS):
             raise ValueError(
                 f"constants_limbs: shape {tuple(constants_limbs.shape)}, "
                 f"family expects {(cfg.num_constants, fp.NLIMBS)}")
         minipoly = ntt.intt(constants_limbs, tables.minipoly_root)  # [k, 16]
-        x_sk2 = g2t[(positions * cfg.skips2) & mask]
-        k_of_x = F.eval_poly(minipoly, x_sk2)
+        g2t = _table(tables, "g2_powers", dev)
+        x_sk2 = g2t[(positions * cfg.skips2) & (cfg.precision - 1)]
+        k_rows = F.limbs_to_words_le(F.eval_poly(minipoly, x_sk2))
 
     # boundary interpolant I(x) coefficients (main.rs:183-187): I(x)
     # interpolates (1, inp), (last, output); host-constant scaffolding, device
@@ -352,12 +347,16 @@ def verify_mimc_proof(tree, inp, output_limbs, tables, cfg: StarkConfig,
 
     # the three constraint families (main.rs:179-192) in one kernel, each
     # right-hand side one multi-term accumulation compared against the
-    # canonicalized committed value (ops/spot_cuda.py)
-    raw5 = torch.stack([p_raw, pg1_raw, d_raw, b_raw, l_raw], dim=-2)
-    tab5 = torch.stack([x, x_to_steps, z, z2_at_x, k_of_x], dim=-2)
+    # canonicalized committed value (ops/spot_cuda.py).  The kernel reads the
+    # trace values from the proof's own rows -- 96-byte main leaves P(x) ||
+    # D(x) || B(x) and P(g1 x) in the next row, main.rs:163-174 -- and
+    # gathers x = G2^pos, x^steps, Z(x) = (x^steps - 1) / (x - last) and
+    # Z2(x) = (x - 1)(x - last) (main.rs:164-166, 175-176, 185) from
+    # host-precomputed tables: no inversion and no square-and-multiply
     oks = spot_cuda.spot_checks(
-        raw5, tab5, ks4[..., None, :, :], i_c1[..., None, :],
-        i_c0[..., None, :], power=cfg.power)               # [..., 80, 3]
+        tree["main"]["value"], tree["lincomb"]["value"], positions, kh, i_c1,
+        i_c0, _spot_tables(tables, cfg, dev), k_rows,
+        power=cfg.power)                                   # [..., 80, 3]
     checks.append(oks.all(dim=-1).all(dim=-1))
 
     ok = checks[0]
@@ -370,10 +369,12 @@ class _FamilyVerifier(nn.Module):
     """What the verifiers of one statement family share.
 
     The statement tables are registered buffers (g2_powers, z_table,
-    z2_table, k_table, points_eval_matrix as int32 limb tensors;
-    level_moduli and points_pts as int64), so they are copied to the device
-    once and move with .to(); the host constants (quartic_ginv, inv4,
-    last_step_position, k_period, minipoly_root) are plain attributes.
+    z2_table, k_table, points_eval_matrix as int32 limb tensors; the spot
+    kernel's copies of the first four packed to 8 words a row, g2_words,
+    z_words, z2_words, k_words; level_moduli and points_pts as int64), so
+    they are copied to the device once and move with .to(); the host
+    constants (quartic_ginv, inv4, last_step_position, k_period,
+    minipoly_root) are plain attributes.
     """
 
     def __init__(self, cfg: StarkConfig, tables: StatementTables,
@@ -387,6 +388,10 @@ class _FamilyVerifier(nn.Module):
                      "points_eval_matrix"):
             self.register_buffer(name, to_tensor(getattr(tables, name), "cpu"),
                                  persistent=False)
+        for name, src in _SPOT_TABLES:
+            self.register_buffer(
+                name, to_tensor(fp.limbs_to_le_words(getattr(tables, src)),
+                                "cpu"), persistent=False)
         self.register_buffer(
             "level_moduli",
             torch.tensor(tables.level_moduli, dtype=torch.int64),

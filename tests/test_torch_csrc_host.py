@@ -21,7 +21,7 @@ import torch
 from stark_verifier_tpu_torch import _build, fp
 from stark_verifier_tpu_torch.config import StarkConfig, cached_tables
 from stark_verifier_tpu_torch.ops import (
-    field as F, field_cuda, fri_cuda, merkle_cuda, spot_cuda)
+    blake2s, field as F, field_cuda, fri_cuda, merkle_cuda, spot_cuda)
 
 torch.set_num_threads(1)
 P = fp.MODULUS
@@ -177,25 +177,78 @@ def test_host_walk_groups_reject_a_bad_table(hostlib, fault):
         assert (out == 7).all()
 
 
-@pytest.mark.parametrize("levels", [3, 11])
-def test_host_chain_levels_strided_view(hostlib, levels):
-    """The verifier hands the chain kernel a level slice of one branch in
-    four: a strided view with a storage offset."""
-    rng = np.random.RandomState(levels)
-    b, q, depth = 3, 5, levels + 2
-    wit4 = _words(rng, (b, q, 4, depth, 8))
-    view = wit4[:, :, 0, 1:1 + levels, :]
-    h = _words(rng, (b, q, 8))
-    ti = _i32(rng.randint(8, 1 << 20, (b, q)).astype(np.uint32))
-    stride = merkle_cuda._witness_stride(view, 2, levels)
-    assert stride == 4 * depth * 8
-    out = torch.empty((b, q, 8), dtype=torch.int32)
-    rc = hostlib.stark_chain_levels(
-        h.data_ptr(), view.data_ptr(), stride, ti.data_ptr(), out.data_ptr(),
-        levels, b * q, None)
-    assert rc == 0
-    want = merkle_cuda.chain_levels_plain(h, view, ti, levels)
-    np.testing.assert_array_equal(out.numpy(), want.numpy())
+def _quad_groups(rng, specs):
+    """Operands of quad groups (q quads, witness depth, levels after the
+    combine): b's sibling is b+1's value, every branch's first witness the
+    other pair's digest except branch 1's in quad 1 of each group of two
+    quads or more."""
+    groups = []
+    for q, depth, levels in specs:
+        val = _words(rng, (q, 4, 8))
+        sib = val[:, [1, 0, 3, 2], :].clone()
+        wit = _words(rng, (q, 4, depth, 8))
+        pairs = blake2s.hash_leaf_pair(val[:, 0::2], sib[:, 0::2])
+        wit[:, 0:2, 0] = pairs[:, None, 1]
+        wit[:, 2:4, 0] = pairs[:, None, 0]
+        if q > 1:
+            wit[1, 1, 0, 5] ^= 1
+        groups.append((val.reshape(4 * q, 8), sib.reshape(4 * q, 8),
+                       wit.reshape(4 * q, depth, 8),
+                       _start_index(4 * q, depth), levels))
+    return groups
+
+
+@pytest.mark.parametrize("levels", [3, 11, 0])
+def test_host_walk_quads(hostlib, levels):
+    """Kernel B's body against its plain version: quad groups with `levels`
+    chain levels beside a group of 5 levels and a group of one quad, in one
+    call, through the wrapper's own descriptors (the chain reads a level
+    slice of one branch in four)."""
+    rng = np.random.RandomState(20 + levels)
+    groups = _quad_groups(rng, [(6, levels + 2, levels), (3, 7, 5),
+                                (1, 2, 0)])
+    outs = [(torch.full((val.shape[0] // 4, 8), 7, dtype=torch.int32),
+             torch.full((val.shape[0] // 4,), 7, dtype=torch.int32))
+            for val, *_ in groups]
+    descs = []
+    for (val, sib, wit, ti, lv), (out, ok) in zip(groups, outs):
+        stride = merkle_cuda._witness_stride(wit, 1, lv + 1)
+        assert stride == wit.shape[-2] * 8
+        d = _group(val, sib, wit, ti, None, out, 8, stride, lv)
+        d.ok = ok.data_ptr()
+        descs.append(d)
+    assert _walk(hostlib.stark_walk_quads_groups, descs) == 0
+    for g, (out, ok) in zip(groups, outs):
+        want, want_ok = merkle_cuda.walk_quads_plain(*g)
+        np.testing.assert_array_equal(out.numpy(), want.numpy())
+        np.testing.assert_array_equal(ok.numpy(), want_ok.numpy())
+        assert ok.tolist()[:2] == [1, 0][:len(ok)]
+
+
+@pytest.mark.parametrize("fault", ["width", "no_ok", "witness_alignment",
+                                   "quads"])
+def test_host_walk_quads_reject_a_bad_table(hostlib, fault):
+    """A quad group kernel B cannot walk: the entry point returns 1 and
+    writes nothing.  Its first witness rows are read at zero levels too."""
+    rng = np.random.RandomState(4)
+    (val, sib, wit, ti, _), = _quad_groups(rng, [(3, 4, 0)])
+    out = torch.full((3, 8), 7, dtype=torch.int32)
+    ok = torch.full((3,), 7, dtype=torch.int32)
+    d = _group(val, sib, wit, ti, None, out, 8, 32, 0)
+    d.ok = ok.data_ptr()
+    assert _walk(hostlib.stark_walk_quads_groups, [d]) == 0
+    out.fill_(7)
+    ok.fill_(7)
+    if fault == "width":
+        d.vw = 5
+    elif fault == "no_ok":
+        d.ok = None
+    elif fault == "witness_alignment":
+        d.witness += 4
+    else:
+        d.n = -1
+    assert _walk(hostlib.stark_walk_quads_groups, [d]) == 1
+    assert (out == 7).all() and (ok == 7).all()
 
 
 def _limbs(vals):
@@ -230,60 +283,112 @@ def test_host_eval4_rows(hostlib):
     np.testing.assert_array_equal(out.numpy(), want.numpy())
 
 
+def _spot_operands(rng, b, g, power, per_position_k=False):
+    """Kernel D's operands on the CPU for b proofs of g positions: raw words
+    (0xFFFFFFFF and sign-bit words, values >= p), small packed tables, and
+    each family made to hold at one position."""
+    main = _words(rng, (b, 2 * g, 24))
+    lin = _words(rng, (b, g, 8))
+    kh = _words(rng, (b, 4, 8))
+    pos = torch.from_numpy(rng.randint(0, 1 << 20, (b, g)).astype(np.int64))
+    ic1 = F.canon(_limbs(_special(rng, b)))
+    ic0 = F.canon(_limbs(list(reversed(_special(rng, b)))))
+    tables = spot_cuda.SpotTables(
+        *(F.limbs_to_words_le(F.canon(_limbs(_special(rng, rows)))).contiguous()
+          for rows in (32, 32, 32, 8)), log_steps=2)
+    k_rows = (F.limbs_to_words_le(F.canon(_limbs(_special(rng, b * g))))
+              .reshape(b, g, 8).contiguous() if per_position_k else None)
+    # the plain version's own limbs and gathers, to make each family hold
+    mv = main.reshape(b, g, 2, 3, 8)
+    p, d, bb = (F.canon(F.words_be_to_limbs(mv[..., 0, j, :]))
+                for j in (0, 1, 2))
+    gath = lambda t, i: F.words_le_to_limbs(t[i])          # noqa: E731
+    x, xs = gath(tables.g2, pos & 31), gath(tables.g2, (pos << 2) & 31)
+    z, z2 = gath(tables.z, pos & 31), gath(tables.z2, pos & 31)
+    k = (F.words_le_to_limbs(k_rows) if per_position_k
+         else gath(tables.k, pos & 7))
+    ks = F.words_be_to_limbs(kh)[:, None]
+    p_pow = [(F.sqr_mod(p), p)] if power == 3 else [(p, p)]
+    mv[0, 1, 1, 0] = F.limbs_to_words_be(F.mul_sum_mod(
+        p_pow + [(z, d)], extra=[k]))[0, 1]
+    lin[1, 2] = F.limbs_to_words_be(F.mul_sum_mod(
+        [(ks[..., 0, :], p), (ks[..., 1, :], F.mul_mod(p, xs)),
+         (ks[..., 2, :], bb), (ks[..., 3, :], F.mul_mod(bb, xs))],
+        extra=[d]))[1, 2]
+    mv[2, 0, 0, 0] = F.limbs_to_words_be(F.mul_sum_mod(
+        [(bb, z2), (ic1[:, None], x)], extra=[ic0[:, None].expand(x.shape)]))[2, 0]
+    return (main, lin, pos, kh, ic1, ic0, tables, k_rows)
+
+
+def _host_spot(hostlib, ops, power, lanes=4):
+    args, bits, keep = spot_cuda._spot_args(*ops, power, lanes)
+    bits.fill_(9)
+    rc = hostlib.stark_spot_checks(args, None)
+    return rc, torch.stack([(bits & 1) != 0, (bits & 2) != 0,
+                            (bits & 4) != 0], -1), bits
+
+
 @pytest.mark.parametrize("power", [3, 2])
 def test_host_spot_checks(hostlib, power):
+    """Kernel D's four parts, run in turn by the host loop, against the
+    plain version on the proof's words and the packed tables."""
     rng = np.random.RandomState(7 + power)
-    b, g = 3, 9
-    raw5 = _limbs(_special(rng, b * g * 5)).reshape(b, g, 5, 16).clone()
-    tab5 = F.canon(_limbs(_special(rng, b * g * 5))).reshape(b, g, 5, 16)
-    ks4 = _limbs([2**256 - 1, P, 0, int.from_bytes(rng.bytes(32), "big")]
-                 + _special(rng, 8)).reshape(b, 1, 4, 16)
-    ic1 = F.canon(_limbs(_special(rng, b))).reshape(b, 1, 16)
-    ic0 = F.canon(_limbs(list(reversed(_special(rng, b))))).reshape(b, 1, 16)
-    # make each family hold somewhere: a canonical right-hand side is a valid
-    # raw encoding of itself
-    p, d, bb = (F.canon(raw5[..., i, :]) for i in (0, 2, 3))
-    x, xs, z, z2, k = (tab5[..., i, :] for i in range(5))
-    p_pow = [(F.sqr_mod(p), p)] if power == 3 else [(p, p)]
-    raw5[0, 0, 1] = F.mul_sum_mod(p_pow + [(z, d)], extra=[k])[0, 0]
-    raw5[1, 2, 4] = F.mul_sum_mod(
-        [(ks4[..., 0, :], p), (ks4[..., 1, :], F.mul_mod(p, xs)),
-         (ks4[..., 2, :], bb), (ks4[..., 3, :], F.mul_mod(bb, xs))],
-        extra=[d])[1, 2]
-    want = spot_cuda.spot_checks_plain(raw5, tab5, ks4, ic1, ic0, power)
-    assert want[0, 0, 0] and want[1, 2, 2] and not want.all()
-    raw5, tab5 = raw5.contiguous(), tab5.contiguous()
-    ks4c, ic1c, ic0c = ks4.contiguous(), ic1.contiguous(), ic0.contiguous()
-    bits = torch.empty((b, g), dtype=torch.int32)
-    rc = hostlib.stark_spot_checks(
-        raw5.data_ptr(), tab5.data_ptr(), ks4c.data_ptr(), ic1c.data_ptr(),
-        ic0c.data_ptr(), g, power, bits.data_ptr(), b * g, None)
-    assert rc == 0
-    got = torch.stack([(bits & 1) != 0, (bits & 2) != 0, (bits & 4) != 0], -1)
-    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    ops = _spot_operands(rng, 3, 9, power)
+    want = spot_cuda.spot_checks_plain(*ops, power=power)
+    assert want[0, 1, 0] and want[1, 2, 2] and want[2, 0, 1]
+    assert not want.all()
+    for lanes in (4, 1):
+        rc, got, _ = _host_spot(hostlib, ops, power, lanes)
+        assert rc == 0
+        np.testing.assert_array_equal(got.numpy(), want.numpy())
 
 
 def test_host_spot_boundary_holds(hostlib):
-    """A position whose boundary constraint holds sets bit 1 only."""
+    """K(x) as one packed row a position (the runtime-statement path), one
+    interpolant row for every proof (stride 0), and a position whose
+    boundary constraint holds, which sets bit 1 only."""
     rng = np.random.RandomState(3)
-    raw5 = _limbs(_special(rng, 10)).reshape(2, 5, 16).clone()
-    tab5 = F.canon(_limbs(_special(rng, 10))).reshape(2, 5, 16)
-    ks4 = _limbs(_special(rng, 4)).reshape(1, 4, 16)
-    ic1 = F.canon(_limbs([P - 3])).reshape(1, 16)
-    ic0 = F.canon(_limbs([12345])).reshape(1, 16)
-    bb = F.canon(raw5[..., 3, :])
-    raw5[1, 0] = F.mul_sum_mod([(bb, tab5[..., 3, :]), (ic1, tab5[..., 0, :])],
-                               extra=[ic0.expand(2, 16)])[1]
-    want = spot_cuda.spot_checks_plain(raw5, tab5, ks4, ic1, ic0)
-    assert want[1, 1]
-    bits = torch.empty(2, dtype=torch.int32)
-    rc = hostlib.stark_spot_checks(
-        raw5.contiguous().data_ptr(), tab5.contiguous().data_ptr(),
-        ks4.data_ptr(), ic1.data_ptr(), ic0.data_ptr(), 2, 3,
-        bits.data_ptr(), 2, None)
+    ops = list(_spot_operands(rng, 3, 5, 3, per_position_k=True))
+    want = spot_cuda.spot_checks_plain(*ops, power=3)
+    assert want[2, 0].tolist() == [False, True, False]
+    assert want[0, 1, 0] and want[1, 2, 2]
+    rc, got, _ = _host_spot(hostlib, ops, 3)
     assert rc == 0
-    got = torch.stack([(bits & 1) != 0, (bits & 2) != 0, (bits & 4) != 0], -1)
     np.testing.assert_array_equal(got.numpy(), want.numpy())
+    ops[4], ops[5] = ops[4][0], ops[5][0]            # one row for all
+    want = spot_cuda.spot_checks_plain(*ops, power=3)
+    args, _, _ = spot_cuda._spot_args(*ops, 3, 4)
+    assert (args.ic1_stride, args.ic0_stride, args.main_stride) == (0, 0, 240)
+    rc, got, _ = _host_spot(hostlib, ops, 3)
+    assert rc == 0
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
+@pytest.mark.parametrize("fault", ["power", "lanes", "rows", "k_rows",
+                                   "main_alignment", "group", "log_steps"])
+def test_host_spot_rejects_bad_arguments(hostlib, fault):
+    """An argument kernel D cannot take: the entry point returns 1 and
+    writes nothing."""
+    rng = np.random.RandomState(2)
+    ops = _spot_operands(rng, 3, 4, 3)
+    args, bits, keep = spot_cuda._spot_args(*ops, 3, 4)
+    bits.fill_(9)
+    if fault == "power":
+        args.power = 4
+    elif fault == "lanes":
+        args.lanes = 2
+    elif fault == "rows":
+        args.rows = 24
+    elif fault == "k_rows":
+        args.k_rows = 6
+    elif fault == "main_alignment":
+        args.main += 4
+    elif fault == "group":
+        args.group = 5                               # 12 positions
+    else:
+        args.log_steps = 63
+    assert hostlib.stark_spot_checks(args, None) == 1
+    assert (bits == 9).all()
 
 
 @pytest.mark.parametrize("shape_a,shape_b", [

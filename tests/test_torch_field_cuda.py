@@ -160,10 +160,22 @@ def test_plain_versions_of_the_other_kernels_do_not_reach_the_dispatch(
         F.canon(limbs(2, 3)), F.canon(limbs(2, 3)), words, limbs(2),
         ginv, inv4).shape == (2, 3, 8)
     for power in (2, 3):
-        ok = spot_cuda.spot_checks_plain(
+        ok = spot_cuda.spot_limbs_plain(
             limbs(2, 3, 5), F.canon(limbs(2, 3, 5)), limbs(2, 1, 4),
             F.canon(limbs(2, 1)), F.canon(limbs(2, 1)), power)
         assert ok.shape == (2, 3, 3)
+
+    def words(*shape):
+        return _t(rng.randint(0, 2**32, shape, dtype=np.uint64)
+                  .astype(np.uint32))
+
+    tabs = spot_cuda.SpotTables(
+        *(F.limbs_to_words_le(F.canon(limbs(r))) for r in (16, 16, 16, 4)),
+        log_steps=2)
+    ok = spot_cuda.spot_checks_plain(
+        words(2, 6, 24), words(2, 3, 8), torch.arange(6).reshape(2, 3),
+        words(2, 4, 8), F.canon(limbs(2)), F.canon(limbs(2)), tabs, power=3)
+    assert ok.shape == (2, 3, 3)
     with pytest.raises(AssertionError):
         F.mul_mod(limbs(2), limbs(2))
 

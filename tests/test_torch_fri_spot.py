@@ -1,6 +1,7 @@
 """Plain versions of the FRI row kernel and the spot-check kernel against the
-JAX package's Pallas kernels in interpret mode and against the oracle.
-Tolerance 0."""
+JAX package's Pallas kernels in interpret mode and against the oracle (the
+spot checks on the proof's words and packed tables, the JAX function on the
+limbs and gathers of the same values).  Tolerance 0."""
 
 import random
 
@@ -107,61 +108,141 @@ def _rand_limbs(rng, shape, canonical=False):
     v = rng.randint(0, 1 << 16, shape + (16,)).astype(np.uint32)
     v.reshape(-1, 16)[0] = 0xFFFF                    # 2^256 - 1
     if canonical:
-        v = np.asarray(JF.canon(jnp.asarray(v)))
+        v = _n(F.canon(_t(v))).copy()
     return v
+
+
+def _rand_words(rng, shape):
+    """Raw proof words: any 32-byte value, 0xFFFFFFFF words mixed in (so
+    some values are >= p)."""
+    w = rng.randint(0, 2**32, shape, dtype=np.uint64).astype(np.uint32)
+    w.reshape(-1)[5::23] = 0xFFFFFFFF
+    return w
+
+
+def _be(limbs):
+    """Limbs -> the proof's 8 BE words (numpy, uint32)."""
+    return _n(F.limbs_to_words_be(limbs if isinstance(limbs, torch.Tensor)
+                                  else _t(limbs)))
+
+
+ROWS, LOG_STEPS, K_ROWS = 64, 3, 16     # small statement tables
+
+
+def _spot_case(rng, lead, n, per_position_k=False):
+    """Kernel D's operands as the verifier hands them over, made small:
+    main value rows [*lead, 2n, 24] and lincomb rows [*lead, n, 8] of raw
+    BE words (some 0xFFFFFFFF words, some values >= p), positions, raw
+    k-hash words, canonical interpolant limbs, packed tables (or packed
+    per-position K rows); and, beside them, the limbs and gathers the JAX
+    function takes for the same values."""
+    main = _rand_words(rng, lead + (2 * n, 24))
+    lin = _rand_words(rng, lead + (n, 8))
+    lin.reshape(-1)[::8][1::3] = 0xFFFFFFFF          # values >= p
+    pos = rng.randint(0, 1 << 20, lead + (n,)).astype(np.int64)
+    kh = _rand_words(rng, lead + (4, 8))
+    ic1 = _rand_limbs(rng, lead, canonical=True)
+    ic0 = _rand_limbs(rng, lead, canonical=True)
+    tabs = {name: _rand_limbs(rng, (rows,), canonical=True)
+            for name, rows in (("g2", ROWS), ("z", ROWS), ("z2", ROWS),
+                               ("k", K_ROWS))}
+    mask = ROWS - 1
+    k_rows = _rand_limbs(rng, lead + (n,), canonical=True)
+    k_of_x = k_rows if per_position_k else tabs["k"][pos & (K_ROWS - 1)]
+    tab5 = np.stack([tabs["g2"][pos & mask],
+                     tabs["g2"][(pos << LOG_STEPS) & mask],
+                     tabs["z"][pos & mask], tabs["z2"][pos & mask], k_of_x],
+                    axis=-2)
+    words = dict(main=main, lin=lin, pos=pos, kh=kh, ic1=ic1, ic0=ic0,
+                 tabs=tabs, k_rows=k_rows if per_position_k else None)
+    return words, tab5
+
+
+def _limbs_of(words):
+    """raw5 [..., n, 5, 16] and ks4 [..., 1, 4, 16] from the word operands,
+    with the JAX package's conversion."""
+    lead_n = words["lin"].shape[:-1]
+    mv = words["main"].reshape(lead_n + (2, 3, 8))
+    raw = np.stack([mv[..., 0, 0, :], mv[..., 1, 0, :], mv[..., 0, 1, :],
+                    mv[..., 0, 2, :], words["lin"]], axis=-2)
+    raw5 = np.asarray(JF.words_be_to_limbs(jnp.asarray(raw)))
+    ks4 = np.asarray(JF.words_be_to_limbs(jnp.asarray(words["kh"])))
+    return raw5, ks4[..., None, :, :]
+
+
+def _port_spot(words, power):
+    tabs = spot_cuda.SpotTables(
+        *(_t(fp.limbs_to_le_words(words["tabs"][k]))
+          for k in ("g2", "z", "z2", "k")), log_steps=LOG_STEPS)
+    k_rows = words["k_rows"]
+    return spot_cuda.spot_checks(
+        _t(words["main"]), _t(words["lin"]), torch.from_numpy(words["pos"]),
+        _t(words["kh"]), _t(words["ic1"]), _t(words["ic0"]), tabs,
+        None if k_rows is None else _t(fp.limbs_to_le_words(k_rows)),
+        power=power)
+
+
+def _make_hold(words, tab5, power, at):
+    """Rewrite the committed values so that each family holds at one
+    position of `at` (a canonical right-hand side is a valid raw encoding
+    of itself): transition at at[0], lincomb at at[1], boundary at at[2]."""
+    raw5, ks4 = _limbs_of(words)
+    p, d, b = (F.canon(_t(raw5[..., i, :])) for i in (0, 2, 3))
+    x, xs, z, z2, k = (_t(tab5[..., i, :]) for i in range(5))
+    k1, k2, k3, k4 = (_t(ks4[..., i, :]) for i in range(4))
+    p_pow = [(F.sqr_mod(p), p)] if power == 3 else [(p, p)]
+    rhs_t = _be(F.mul_sum_mod(p_pow + [(z, d)], extra=[k]))
+    rhs_l = _be(F.mul_sum_mod([(k1, p), (k2, F.mul_mod(p, xs)), (k3, b),
+                               (k4, F.mul_mod(b, xs))], extra=[d]))
+    ic1, ic0 = _t(words["ic1"])[..., None, :], _t(words["ic0"])[..., None, :]
+    rhs_b = _be(F.mul_sum_mod([(b, z2), (ic1, x)], extra=[ic0.expand(x.shape)]))
+    lead_n = words["lin"].shape[:-1]
+    mv = words["main"].reshape(lead_n + (2, 3, 8))
+    mv[at[0] + (1, 0)] = rhs_t[at[0]]                # P(g1 x)
+    words["lin"][at[1]] = rhs_l[at[1]]               # L(x)
+    mv[at[2] + (0, 0)] = rhs_b[at[2]]                # P(x): bit 1 only there
+
+
+def _jax_spot(words, tab5, power):
+    raw5, ks4 = _limbs_of(words)
+    return np.asarray(spot_pallas.spot_checks(
+        jnp.asarray(raw5), jnp.asarray(tab5), jnp.asarray(ks4),
+        jnp.asarray(words["ic1"][..., None, :]),
+        jnp.asarray(words["ic0"][..., None, :]), interpret=True, power=power))
 
 
 @pytest.mark.parametrize("power", [3, 2])
 def test_spot_checks_plain(power):
+    """D's plain version on the proof's words and the packed tables against
+    the JAX function on the limbs and gathers of the same values, with each
+    family holding at one position and failing elsewhere."""
     rng = np.random.RandomState(11 + power)
-    n = 10
-    raw5 = _rand_limbs(rng, (n, 5))
-    tab5 = _rand_limbs(rng, (n, 5), canonical=True)
-    ks4 = _rand_limbs(rng, (4,))
-    ic1 = _rand_limbs(rng, (), canonical=True)
-    ic0 = _rand_limbs(rng, (), canonical=True)
-
-    # make individual families PASS on chosen positions (a canonical rhs is
-    # a valid raw encoding of itself)
-    p, d, b = (F.canon(_t(raw5[:, i])) for i in (0, 2, 3))
-    x, xs, z, z2, k = (_t(tab5[:, i]) for i in range(5))
-    p_pow = [(F.sqr_mod(p), p)] if power == 3 else [(p, p)]
-    raw5[0, 1] = _n(F.mul_sum_mod(p_pow + [(z, d)], extra=[k]))[0]
-    raw5[2, 4] = _n(F.mul_sum_mod(
-        [(_t(ks4[0]), p), (_t(ks4[1]), F.mul_mod(p, xs)),
-         (_t(ks4[2]), b), (_t(ks4[3]), F.mul_mod(b, xs))], extra=[d]))[2]
-    raw5[1, 0] = _n(F.mul_sum_mod([(b, z2), (_t(ic1), x)],
-                                  extra=[_t(ic0).expand(n, 16)]))[1]
-
-    want = np.asarray(spot_pallas.spot_checks(
-        jnp.asarray(raw5), jnp.asarray(tab5), jnp.asarray(ks4),
-        jnp.asarray(ic1), jnp.asarray(ic0), interpret=True, power=power))
-    got = spot_cuda.spot_checks(_t(raw5), _t(tab5), _t(ks4), _t(ic1), _t(ic0),
-                                power=power)
+    words, tab5 = _spot_case(rng, (), 10)
+    _make_hold(words, tab5, power, [(0,), (2,), (1,)])
+    want = _jax_spot(words, tab5, power)
+    got = _port_spot(words, power)
+    assert got.shape == (10, 3) and got.dtype == torch.bool
     np.testing.assert_array_equal(got.numpy(), want)
     assert want[0, 0] and want[1, 1] and want[2, 2]
     assert not want[3:].any()
 
 
-def test_spot_checks_verifier_call_shape():
-    """[B, 80-like] positions with per-proof k's and interpolant
-    coefficients broadcast over positions."""
-    rng = np.random.RandomState(5)
-    raw5 = _rand_limbs(rng, (2, 6, 5))
-    tab5 = _rand_limbs(rng, (2, 6, 5), canonical=True)
-    ks4 = _rand_limbs(rng, (2, 1, 4))
-    ic1 = _rand_limbs(rng, (2, 1), canonical=True)
-    ic0 = _rand_limbs(rng, (2, 1), canonical=True)
-    raw5[1, 3, 1] = raw5[1, 3, 0]        # arbitrary edit; verdicts just compare
-    want = np.asarray(spot_pallas.spot_checks(
-        jnp.asarray(raw5), jnp.asarray(tab5), jnp.asarray(ks4),
-        jnp.asarray(ic1), jnp.asarray(ic0), interpret=True))
-    got = spot_cuda.spot_checks(_t(raw5), _t(tab5), _t(ks4), _t(ic1), _t(ic0))
+@pytest.mark.parametrize("power", [3, 2])
+def test_spot_checks_verifier_call_shape(power):
+    """[B, n] positions with per-proof k's and interpolant coefficients,
+    and K(x) as one packed row a position (the runtime-statement path)."""
+    rng = np.random.RandomState(5 + power)
+    words, tab5 = _spot_case(rng, (2,), 6, per_position_k=True)
+    _make_hold(words, tab5, power, [(1, 3), (0, 5), (1, 0)])
+    want = _jax_spot(words, tab5, power)
+    got = _port_spot(words, power)
     assert got.shape == (2, 6, 3) and got.dtype == torch.bool
     np.testing.assert_array_equal(got.numpy(), want)
+    assert want[1, 3, 0] and want[0, 5, 2] and want[1, 0, 1]
 
 
 def test_spot_checks_bad_power_raises():
-    z = torch.zeros((1, 5, 16), dtype=torch.int32)
+    rng = np.random.RandomState(1)
+    words, _ = _spot_case(rng, (), 4)
     with pytest.raises(ValueError):
-        spot_cuda.spot_checks(z, z, z[:, :4], z[0, 0], z[0, 0], power=5)
+        _port_spot(words, 5)

@@ -1,7 +1,9 @@
 """Port's Merkle modules against the JAX package: the plain versions of the
-two walk kernels (ops/merkle_cuda.py) against the Pallas kernels in interpret
-mode, and the shared-path walk (ops/merkle.py) against its JAX namesake on
-the branch groups of a freshly proved statement.  Tolerance 0."""
+walk kernels A and B (ops/merkle_cuda.py) against the Pallas kernels in
+interpret mode (B's quads against the JAX package's pair hashes, combine and
+chain kernel), and the shared-path walk (ops/merkle.py) against its JAX
+namesake on the branch groups of a freshly proved statement.  Tolerance
+0."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -118,6 +120,8 @@ def test_walk_leaf_levels_groups_equal_the_walk_of_each_group(vw24_walk):
 
 
 def test_chain_levels_vs_pallas_interpret():
+    """The chain that kernel B walks after a quad's combine, in its plain
+    form, against the JAX package's chain kernel."""
     rng = np.random.RandomState(3)
     n, levels = 8, 3
     h = _words(rng, (n, 8))
@@ -126,22 +130,100 @@ def test_chain_levels_vs_pallas_interpret():
     want = np.asarray(merkle_pallas.chain_levels(
         jnp.asarray(h), jnp.asarray(wit), jnp.asarray(ti), levels=levels,
         interpret=True))
-    got = merkle_cuda.chain_levels(_t(h), _t(wit), _t(ti), levels)
+    got = merkle_cuda.chain_levels_plain(_t(h), _t(wit), _t(ti), levels)
     np.testing.assert_array_equal(_n(got), want)
 
 
 def test_chain_levels_strided_view_equals_copy():
+    """Kernel B reads the chain's rows as a level slice of one branch in
+    four: the wrapper's stride of such a view, and the plain chain on it."""
     rng = np.random.RandomState(4)
     wit4 = _t(_words(rng, (2, 5, 4, 6, 8)))
     view = wit4[:, :, 0, 1:4, :]
     h = _t(_words(rng, (2, 5, 8)))
     ti = _t(rng.randint(8, 1 << 12, (2, 5)).astype(np.uint32))
     np.testing.assert_array_equal(
-        merkle_cuda.chain_levels(h, view, ti, 3).numpy(),
-        merkle_cuda.chain_levels(h, view.contiguous(), ti, 3).numpy())
+        merkle_cuda.chain_levels_plain(h, view, ti, 3).numpy(),
+        merkle_cuda.chain_levels_plain(h, view.contiguous(), ti, 3).numpy())
     assert merkle_cuda._witness_stride(view, 2, 3) == 4 * 6 * 8
+    assert merkle_cuda._witness_stride(wit4.flatten(1, 2), 2, 6) == 6 * 8
     with pytest.raises(ValueError):
         merkle_cuda._witness_stride(wit4[:, :, 0, :, ::2], 2, 3)
+
+
+def _quad_case(rng, q, depth, bad=()):
+    """q sibling quads of 32-byte leaves: b's sibling is b+1's value, every
+    branch's first witness the other pair's digest (JAX's Blake2s) except in
+    the quads of `bad`, where branch 1's carries one flipped bit."""
+    n = 4 * q
+    val = _words(rng, (n, 8)).reshape(q, 4, 8)
+    sib = val[:, [1, 0, 3, 2], :].copy()
+    wit = _words(rng, (q, 4, depth, 8))
+    pairs = np.asarray(JB.hash_leaf_pair(jnp.asarray(val[:, 0::2]),
+                                         jnp.asarray(sib[:, 0::2])))
+    wit[:, 0:2, 0] = pairs[:, None, 1]
+    wit[:, 2:4, 0] = pairs[:, None, 0]
+    for k in bad:
+        wit[k, 1, 0, 3] ^= 1
+    ti = _start(n, depth)
+    return (val.reshape(n, 8), sib.reshape(n, 8), wit.reshape(n, depth, 8),
+            ti), pairs
+
+
+@pytest.fixture(scope="module")
+def jax_quads():
+    """Operands of two quad groups -- 3 levels after the combine, with two
+    quads whose first witness is tampered; 0 levels -- and the JAX package's
+    digests for them: its pair hashes and combine, then its chain kernel in
+    interpret mode."""
+    rng = np.random.RandomState(8)
+    out = []
+    for q, depth, levels, bad in ((8, 6, 3, (2, 5)), (5, 3, 0, ())):
+        args, pairs = _quad_case(rng, q, depth, bad)
+        res = JB.hash_pair(jnp.asarray(pairs[:, 0]), jnp.asarray(pairs[:, 1]))
+        if levels:
+            wit0 = args[2].reshape(q, 4, depth, 8)[:, 0, 1:1 + levels]
+            res = merkle_pallas.chain_levels(
+                res, jnp.asarray(wit0), jnp.asarray(args[3][0::4] >> 2),
+                levels=levels, interpret=True)
+        ok = np.ones(q, dtype=np.int32)
+        ok[list(bad)] = 0
+        out.append((args + (levels,), np.asarray(res), ok))
+    return out
+
+
+@pytest.mark.parametrize("case", [0, 1], ids=["levels3_tampered",
+                                              "zero_levels"])
+def test_walk_quads_vs_jax(jax_quads, case):
+    (val, sib, wit, ti, levels), want, want_ok = jax_quads[case]
+    got, ok = merkle_cuda.walk_quads(_t(val), _t(sib), _t(wit), _t(ti),
+                                     levels)
+    np.testing.assert_array_equal(_n(got), want)
+    np.testing.assert_array_equal(ok.numpy(), want_ok)
+    assert ok.dtype == torch.int32
+
+
+def test_walk_quads_groups_equal_the_walk_of_each_group(jax_quads):
+    """Both JAX-checked quad groups and one batched group [2, 3 quads] in
+    one call: each group's digests and ok words equal its own walk_quads."""
+    rng = np.random.RandomState(12)
+    groups = [tuple(map(_t, args[:4])) + (args[4],)
+              for args, _, _ in jax_quads]
+    args, _ = _quad_case(rng, 6, 5, bad=(4,))
+    groups.append(tuple(_t(a).reshape((2, 12) + a.shape[1:]) for a in args)
+                  + (2,))
+    got = merkle_cuda.walk_quads_groups(groups)
+    assert len(got) == len(groups)
+    for g, (res, ok) in zip(groups, got):
+        want, want_ok = merkle_cuda.walk_quads(*g)
+        np.testing.assert_array_equal(res.numpy(), want.numpy())
+        np.testing.assert_array_equal(ok.numpy(), want_ok.numpy())
+    assert got[2][0].shape == (2, 3, 8)
+    assert got[2][1].tolist() == [[1, 1, 1], [1, 0, 1]]   # quad 4 tampered
+    for (res, ok), (_, want, want_ok) in zip(got, jax_quads):
+        np.testing.assert_array_equal(_n(res), want)
+        np.testing.assert_array_equal(ok.numpy(), want_ok)
+    assert merkle_cuda.walk_quads_groups([]) == []
 
 
 def test_branch_rows_copy_only_for_unaligned_wide_loads():
@@ -288,6 +370,15 @@ def _straddle(quad_i):
     return edit
 
 
+def _first_witness(quad_i):
+    """Branch 1's first witness in the quad group changed: its independent
+    walk hashes against it, so the group rejects."""
+    def edit(gi, g):
+        if gi == quad_i:
+            g["witness"][1, 0, 3] ^= 1
+    return edit
+
+
 def _ragged(group_index):
     def edit(gi, g):
         if gi == group_index:
@@ -311,7 +402,8 @@ def shared_results(fresh):
     groups = _group_arrays(fresh)
     assert len(groups) == N_GROUPS and groups[QUAD]["quad"]
     variants = ([None] + [_flip(FIELDS[i % 3], i) for i in range(N_GROUPS)]
-                + [_misalign(QUAD), _straddle(QUAD), _ragged(1)])
+                + [_misalign(QUAD), _straddle(QUAD), _ragged(1),
+                   _first_witness(QUAD)])
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("STARK_SHARED_TAIL", "2")
         mp.setattr(merkle_pallas, "SUB_TILE", 1)
@@ -338,9 +430,10 @@ def test_shared_walk_flipped_word_rejects_its_group_only(shared_results, group):
     np.testing.assert_array_equal(col, expect)
 
 
-@pytest.mark.parametrize("variant,group", [(0, QUAD), (1, QUAD), (2, 1)],
+@pytest.mark.parametrize("variant,group",
+                         [(0, QUAD), (1, QUAD), (2, 1), (3, QUAD)],
                          ids=["quad_not_aligned", "quad_straddles_nodes",
-                              "ragged_depth"])
+                              "ragged_depth", "quad_first_witness"])
 def test_shared_walk_guards_reject(shared_results, variant, group):
     got, want = shared_results
     col = got[:, 1 + N_GROUPS + variant]
