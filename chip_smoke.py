@@ -20,8 +20,7 @@ the CPU):
                  bit-exact, at the shapes its path gives it (the Merkle walks
                  A, B and F also with all groups of a call site in one
                  launch, as the path runs them; D at power 3 and 2, with its
-                 K table and with K rows, on four lanes and on one thread a
-                 position), with the wrapper's time (CUDA events
+                 K table and with K rows), with the wrapper's time (CUDA events
                  around Python calls) and its device time (calls replayed
                  from a CUDA graph) beside the least time the card could
                  take;
@@ -310,12 +309,11 @@ def quad_inputs(gen, b, q, depth, levels, bad=True):
             wit.reshape(b, 4 * q, depth, 8), ti.reshape(b, 4 * q), levels)
 
 
-def check_quads(gen, ops, b, specs, label, reps,
-                entry="stark_walk_quads_groups"):
+def check_quads(gen, ops, b, specs, label, reps):
     """Kernel B on the quad groups of `specs` ((q, depth, levels) each, b x q
     quads) in one launch, against the plain version group by group."""
     groups = [quad_inputs(gen, b, *sp) for sp in specs]
-    got = merkle_cuda.walk_quads_groups(groups, entry)
+    got = merkle_cuda.walk_quads_groups(groups)
     torch.cuda.synchronize()
     want = [merkle_cuda.walk_quads_plain(*g) for g in groups]
     for _, ok in want:
@@ -329,7 +327,7 @@ def check_quads(gen, ops, b, specs, label, reps,
         quads = val.numel() // 32
         moved += quads * (4 * 32 + 4 * 32 + levels * 32 + 4 + 32 + 4)
         compressions += quads * (3 + levels)
-    return measure(label, lambda: merkle_cuda.walk_quads_groups(groups, entry),
+    return measure(label, lambda: merkle_cuda.walk_quads_groups(groups),
                    lambda: [merkle_cuda.walk_quads_plain(*g) for g in groups],
                    [t for pair in got for t in pair],
                    [t for pair in want for t in pair], moved,
@@ -410,9 +408,9 @@ def spot_inputs(gen, cfg, tabs, b, power, k_rows):
     return (main, lin, pos, kh, ic1, ic0, tabs, kr)
 
 
-def check_spot(gen, ops, cfg, tabs, b, power, reps, k_rows=False, lanes=4):
+def check_spot(gen, ops, cfg, tabs, b, power, reps, k_rows=False):
     args = spot_inputs(gen, cfg, tabs, b, power, k_rows)
-    got = spot_cuda.spot_checks(*args, power=power, lanes=lanes)
+    got = spot_cuda.spot_checks(*args, power=power)
     torch.cuda.synchronize()
     want = spot_cuda.spot_checks_plain(*args, power=power)
     frac = want.to(torch.float32).mean(dim=(0, 1)).tolist()
@@ -423,14 +421,11 @@ def check_spot(gen, ops, cfg, tabs, b, power, reps, k_rows=False, lanes=4):
     n = cfg.spot_checks
     # what a position needs: main row 2k (P, D, B) and P of row 2k+1, L, its
     # position, five table rows (x, x^steps, Z, Z2, K); per proof the k-hash
-    # words and the two interpolant rows; out a word a position
-    moved = b * n * (96 + 32 + 32 + 8 + 5 * 32 + 4) + b * (128 + 2 * 64)
+    # words and the two interpolant rows; out three bytes a position
+    moved = b * n * (96 + 32 + 32 + 8 + 5 * 32 + 3) + b * (128 + 2 * 64)
     label = (f"B={b} positions={n} power={power} "
-             f"{'K rows' if k_rows else 'K table'}, {lanes} lane(s) a "
-             "position")
-    rec = measure(label,
-                  lambda: spot_cuda.spot_checks(*args, power=power,
-                                                lanes=lanes),
+             f"{'K rows' if k_rows else 'K table'}")
+    rec = measure(label, lambda: spot_cuda.spot_checks(*args, power=power),
                   lambda: spot_cuda.spot_checks_plain(*args, power=power),
                   [got], [want], moved, [(b * n, ops[f"probe_spot{power}"])],
                   reps)
@@ -631,25 +626,13 @@ def kernel_phase(cfg, tables, ops):
         b_cases.append(check_quads(
             gen, ops, b, [spec], f"B={b} quads={spec[0]} depth={spec[1]} "
             f"levels={spec[2]}", 20))
-    # interim: the prologue's rows loaded before the first hash
-    b_cases.append(check_quads(gen, ops, b, b_quads,
-                               "5 FRI poly quad groups, one launch, rows "
-                               "loaded first", 20,
-                               "stark_walk_quads_early_groups"))
-    b_cases.append(check_quads(gen, ops, b, b_quads[:1],
-                               f"B={b} quads={q} depth={dm} levels={dm - 4}, "
-                               "rows loaded first", 20,
-                               "stark_walk_quads_early_groups"))
     c_case = check_rows(gen, ops, tables, cfg, b, 20)
-    # kernel D: power 3 on the static path first (the row's numbers), one
-    # thread a position beside it, power 2, and K rows (runtime statement)
+    # kernel D: power 3 on the static path first (the row's numbers), power
+    # 2, and K rows (the runtime-statement path)
     tabs = spot_tables(tables, cfg)
     d_cases = [check_spot(gen, ops, cfg, tabs, b, cfg.power, 20),
-               check_spot(gen, ops, cfg, tabs, b, cfg.power, 20, lanes=1),
                check_spot(gen, ops, cfg, tabs, b, 2, 20),
-               check_spot(gen, ops, cfg, tabs, b, cfg.power, 20, k_rows=True),
-               check_spot(gen, ops, cfg, tabs, b, cfg.power, 20, k_rows=True,
-                          lanes=1)]
+               check_spot(gen, ops, cfg, tabs, b, cfg.power, 20, k_rows=True)]
     # kernel E at the runtime-statement path's shapes (a boundary product of
     # one chunk and of the whole batch, every butterfly stage of the iNTT of
     # the 64 constants as ops/ntt.py slices it, its final scaling) and at a

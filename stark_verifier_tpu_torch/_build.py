@@ -49,7 +49,7 @@ class SpotArgs(ctypes.Structure):
                 ("main_stride", _ll), ("lin_stride", _ll), ("kh_stride", _ll),
                 ("ic1_stride", _ll), ("ic0_stride", _ll), ("rows", _ll),
                 ("k_rows", _ll), ("group", _ll), ("n", _ll),
-                ("log_steps", _i), ("power", _i), ("lanes", _i)]
+                ("log_steps", _i), ("power", _i)]
 
 
 _groups = ctypes.POINTER(WalkGroup)
@@ -58,7 +58,6 @@ _groups = ctypes.POINTER(WalkGroup)
 SIGNATURES = {
     "stark_walk_leaf_levels_groups": [_groups, _i, _p],
     "stark_walk_quads_groups": [_groups, _i, _p],
-    "stark_walk_quads_early_groups": [_groups, _i, _p],
     "stark_eval4_rows": [_p, _p, _p, _p, _u32p, _u32p, _ll, _p, _ll, _p],
     "stark_spot_checks": [ctypes.POINTER(SpotArgs), _p],
     "stark_mul_mod": [_p, _ll, _p, _ll, _p, _ll, _p],

@@ -62,7 +62,6 @@
 #define STARK_WALK_A 0     // leaf + `levels` levels, one count a group
 #define STARK_WALK_F 1     // leaf + each branch's own depth
 #define STARK_WALK_QUAD 2  // sibling quads from their leaves (kernel B)
-#define STARK_WALK_QUAD_EARLY 3  // interim: B with its rows loaded first
 
 // One branch group of a grouped walk (the host's table and the kernel's
 // parameter share this layout).  Branch i's vw value / sibling words start
@@ -179,46 +178,18 @@ STARK_HD void stark_walk_branch(const stark_walk_group& g, long long i) {
   stark_st8(g.out + i * 8, h);
 }
 
-// Quad q of group g (kernel B): branches b = 4q .. 4q+3 are the four leaves
-// of one level-2 node, so b and b+1 are sibling leaves (each one's sibling
-// is the other's value: checked by the caller) and branch b's tree index is
-// even (4-aligned: checked by the caller), as is b+2's.  Their independent
-// walks hash n01 = H(v0 || s0) and n23 = H(v2 || s2), meet each other's
-// pair digest as their level-0 witness (checked here) and combine to
-// H(n01 || n23); above that all four consume the same witnesses (checked by
-// the caller), so branch b's rows serve the quad.
+// Quad q of group g (kernel B), 32-byte leaves: branches b = 4q .. 4q+3
+// are the four leaves of one level-2 node, so b and b+1 are sibling leaves
+// (each one's sibling is the other's value: checked by the caller) and
+// branch b's tree index is even (4-aligned: checked by the caller), as is
+// b+2's.  Their independent walks hash n01 = H(v0 || s0) and n23 = H(v2 ||
+// s2), meet each other's pair digest as their level-0 witness (checked
+// here) and combine to H(n01 || n23); above that all four consume the same
+// witnesses (checked by the caller), so branch b's rows serve the quad.
+// Every row the prologue reads is loaded before the first hash, so that the
+// loads' latency hides behind the hashing: on an H100 the five poly groups
+// ran 1.24x faster so than with each row loaded where it is used.
 STARK_HD void stark_walk_quad(const stark_walk_group& g, long long q) {
-  const long long b = 4 * q;
-  const uint32_t* v = g.value + b * g.vstride;
-  const uint32_t* s = g.sibling + b * g.vstride;
-  const uint32_t* wit = g.witness + b * g.wit_stride;
-  uint32_t n01[8], n23[8];
-  if (g.vw == 8) {
-    stark_leaf_hash<8>(v, s, false, n01);
-    stark_leaf_hash<8>(v + 2 * g.vstride, s + 2 * g.vstride, false, n23);
-  } else {
-    stark_leaf_hash<24>(v, s, false, n01);
-    stark_leaf_hash<24>(v + 2 * g.vstride, s + 2 * g.vstride, false, n23);
-  }
-  uint32_t diff = 0;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    uint32_t w[8];
-    stark_ld8(wit + k * g.wit_stride, w);
-    const uint32_t* other = k < 2 ? n23 : n01;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) diff |= w[j] ^ other[j];
-  }
-  b2s_merkle_level(n01, n23, false);  // n01 <- H(n01 || n23)
-  stark_chain(n01, wit + 8, g.tidx[b] >> 2, g.levels);
-  stark_st8(g.out + q * 8, n01);
-  g.ok[q] = diff == 0 ? 1u : 0u;
-}
-
-// Interim variant of the quad walk, 32-byte leaves only: every row the
-// prologue reads (the two leaf pairs, the four first witnesses) is loaded
-// before the first hash, so that their latency overlaps the hashing.
-STARK_HD void stark_walk_quad_early(const stark_walk_group& g, long long q) {
   const long long b = 4 * q;
   const uint32_t* v = g.value + b * g.vstride;
   const uint32_t* s = g.sibling + b * g.vstride;
@@ -250,8 +221,6 @@ template <int MODE>
 STARK_HD void stark_walk_one(const stark_walk_group& g, long long i) {
   if (MODE == STARK_WALK_QUAD)
     stark_walk_quad(g, i);
-  else if (MODE == STARK_WALK_QUAD_EARLY)
-    stark_walk_quad_early(g, i);
   else
     stark_walk_branch<MODE == STARK_WALK_F>(g, i);
 }
@@ -276,22 +245,23 @@ static bool stark_aligned16(const void* p) {
   return (reinterpret_cast<unsigned long long>(p) & 15u) == 0;
 }
 
-// A group the kernel can walk: A and B take widths 8 and 24, F any width
-// >= 1 and a depth array, B an ok array; strides at least a row; 16-byte
-// loads (widths 8 and 24, every witness row, the digests) on 16-byte aligned
-// rows.  B reads every quad's level-0 witness rows, whatever its levels.
+// A group the kernel can walk: A takes widths 8 and 24, B width 8 and an ok
+// array, F any width >= 1 and a depth array; strides at least a row;
+// 16-byte loads (widths 8 and 24, every witness row, the digests) on
+// 16-byte aligned rows.  B reads every quad's level-0 witness rows,
+// whatever its levels.
 static bool stark_walk_group_ok(const stark_walk_group& g, int mode) {
   const bool wide = g.vw == 8 || g.vw == 24;
   if (g.n < 0 || g.levels < 0 || g.vw < 1 || g.vstride < g.vw) return false;
   if (mode != STARK_WALK_F && !wide) return false;
-  if (mode == STARK_WALK_QUAD_EARLY && g.vw != 8) return false;
+  if (mode == STARK_WALK_QUAD && g.vw != 8) return false;
   if (g.n == 0) return true;
   if (mode == STARK_WALK_F && g.depth == nullptr) return false;
-  if (mode >= STARK_WALK_QUAD && g.ok == nullptr) return false;
+  if (mode == STARK_WALK_QUAD && g.ok == nullptr) return false;
   if (wide && (!stark_aligned16(g.value) || !stark_aligned16(g.sibling) ||
                g.vstride % 4 != 0))
     return false;
-  if ((g.levels > 0 || mode >= STARK_WALK_QUAD) &&
+  if ((g.levels > 0 || mode == STARK_WALK_QUAD) &&
       (!stark_aligned16(g.witness) || g.wit_stride % 4 != 0))
     return false;
   return stark_aligned16(g.out);
@@ -301,7 +271,7 @@ static bool stark_walk_group_ok(const stark_walk_group& g, int mode) {
 // a quad's two leaves, their combine and its levels.
 static long long stark_walk_work(const stark_walk_group& g, int mode) {
   const long long leaf = (2LL * g.vw + 15) / 16;
-  return g.n * (mode >= STARK_WALK_QUAD ? 2 * leaf + 1 + g.levels
+  return g.n * (mode == STARK_WALK_QUAD ? 2 * leaf + 1 + g.levels
                                         : leaf + g.levels);
 }
 
@@ -344,12 +314,9 @@ static int stark_walk_groups(const stark_walk_group* groups, int count,
     stark_walk_groups_kernel<STARK_WALK_A><<<grid, STARK_WALK_BLOCK, 0, st>>>(t);
   else if (mode == STARK_WALK_F)
     stark_walk_groups_kernel<STARK_WALK_F><<<grid, STARK_WALK_BLOCK, 0, st>>>(t);
-  else if (mode == STARK_WALK_QUAD)
+  else
     stark_walk_groups_kernel<STARK_WALK_QUAD><<<grid, STARK_WALK_BLOCK, 0,
                                                 st>>>(t);
-  else
-    stark_walk_groups_kernel<STARK_WALK_QUAD_EARLY><<<grid, STARK_WALK_BLOCK,
-                                                      0, st>>>(t);
   return (int)cudaGetLastError();
 #else
   (void)stream;
@@ -359,10 +326,8 @@ static int stark_walk_groups(const stark_walk_group* groups, int count,
         stark_walk_one<STARK_WALK_A>(t.g[k], i);
       else if (mode == STARK_WALK_F)
         stark_walk_one<STARK_WALK_F>(t.g[k], i);
-      else if (mode == STARK_WALK_QUAD)
-        stark_walk_one<STARK_WALK_QUAD>(t.g[k], i);
       else
-        stark_walk_one<STARK_WALK_QUAD_EARLY>(t.g[k], i);
+        stark_walk_one<STARK_WALK_QUAD>(t.g[k], i);
     }
   return 0;
 #endif
@@ -384,9 +349,9 @@ extern "C" int stark_walk_branches_groups(const void* groups, int count,
                            count, STARK_WALK_F, stream);
 }
 
-// Kernel B: each group's sibling quads from their leaves (widths 8 or 24),
-// then `levels` witness levels of the quad's first branch; a digest and an
-// ok word a quad.
+// Kernel B: each group's sibling quads from their leaves (width 8), then
+// `levels` witness levels of the quad's first branch; a digest and an ok
+// word a quad.
 extern "C" int stark_walk_quads_groups(const void* groups, int count,
                                        void* stream) {
   return stark_walk_groups(static_cast<const stark_walk_group*>(groups),
@@ -394,9 +359,3 @@ extern "C" int stark_walk_quads_groups(const void* groups, int count,
 }
 
 
-// Interim: kernel B with every prologue row loaded before the first hash.
-extern "C" int stark_walk_quads_early_groups(const void* groups, int count,
-                                             void* stream) {
-  return stark_walk_groups(static_cast<const stark_walk_group*>(groups),
-                           count, STARK_WALK_QUAD_EARLY, stream);
-}

@@ -10,8 +10,8 @@
 //   lincomb     L(x)    == k1 P + k2 P x^s + k3 B + k4 B x^s + D
 //
 // k1..k4 enter raw (any value < 2^256), as the reference multiplies them
-// unreduced.  Output: bit 0 / 1 / 2 of one word per position = transition /
-// boundary / lincomb holds.
+// unreduced.  Output: three bytes a position, 1 where the transition /
+// boundary / lincomb holds, else 0 (a bool tensor [..., 3] to the caller).
 //
 // The TPU kernel takes its operands as 16-bit limb tiles that plain JAX
 // converts, gathers and stacks first.  This one reads them where they lie:
@@ -22,13 +22,11 @@
 // On the runtime-statement path K(x) arrives as one row a position instead.
 //
 // What bounds it on an H100: the arithmetic, by issue.  A position needs
-// about 4,000 instructions of products, reductions and compares at power 3
-// (3,600 at power 2: probe_spot3 / probe_spot2 of csrc/probes/work.cu in
+// about 3,900 instructions of products, reductions and compares at power 3
+// (3,500 at power 2: probe_spot3 / probe_spot2 of csrc/probes/work.cu in
 // the SASS) against some 330 bytes, 12 an instruction where the card moves
-// 10.  One thread a position left few warps in flight, each on one long
-// dependent chain (about 2.4 warps a scheduler at 512 proofs).  Here FOUR
-// lanes of a warp take a position, each one part of it through the same
-// instruction stream, so no lane waits on another's branch:
+// 10.  FOUR lanes of a warp take a position, each one part of it through
+// the same instruction stream, so no lane waits on another's branch:
 //
 //   lane 0  transition        P * P^(power-1) + Z * D + K
 //   lane 1  boundary          B * Z2 + I1 * x + I0
@@ -37,10 +35,13 @@
 //
 // Every part is one reduced product (P^2, P x^s or B x^s; lane 1's is
 // discarded), two products and an addend into an 18-limb accumulator.
-// Lanes 2 and 3 add their accumulators by shuffle before the one reduction,
-// and the three bits meet by shuffle.  With `lanes` 1 one thread runs the
-// four parts of a position in turn through the same functions, as the host
-// build does: that is what the g++ tests hold against the plain version.
+// Lanes 2 and 3 add their accumulators by shuffle before the one reduction;
+// lanes 0, 1 and 2 each write their verdict's byte.  The host build runs
+// the four parts of a position in turn through the same functions: that is
+// what the g++ tests hold against the plain version.  On an H100 80GB HBM3
+// at 700 W one thread a position on the same operands ran as fast (0.0237
+// ms at 512 proofs, wrapper included): four times the warps in flight did
+// not move it, so latency hiding is not what holds it at 3.6x of its bound.
 #include "field256.cuh"
 
 // Where an operand slot of a part comes from, and how it is read.
@@ -64,7 +65,7 @@
 //     little endian.  x = g2[pos], x^steps = g2[pos << log_steps], Z(x) =
 //     z[pos], Z2(x) = z2[pos] (indices masked by rows - 1), K(x) =
 //     k[pos & (k_rows - 1)] or k_pos's row;
-//   out [proofs * group] words of 3 bits.
+//   out [proofs * group, 3] bytes.
 struct stark_spot_args {
   const uint32_t* main;
   const uint32_t* lin;
@@ -77,7 +78,7 @@ struct stark_spot_args {
   const uint32_t* z2;
   const uint32_t* k;
   const uint32_t* k_pos;
-  uint32_t* out;
+  uint8_t* out;
   long long main_stride;
   long long lin_stride;
   long long kh_stride;
@@ -89,7 +90,6 @@ struct stark_spot_args {
   long long n;
   int log_steps;
   int power;
-  int lanes;
 };
 
 // c ? a : b limb by limb.  A conditional between two field elements in
@@ -147,7 +147,9 @@ STARK_HD void stark_spot_part(int role, const stark_spot_part_in& in,
 // Position i's operand slots for one part: pointers and kinds by role.
 STARK_HD stark_spot_part_in stark_spot_operands(const stark_spot_args& g,
                                                 long long i, int role) {
-  const long long q = i / g.group, kx = i - q * g.group;
+  // n < 2^31 (checked by the entry point): a 32-bit division
+  const long long q = (long long)((uint32_t)i / (uint32_t)g.group);
+  const long long kx = i - q * g.group;
   const uint32_t* row = g.main + q * g.main_stride + kx * 48;  // row 2k
   const uint32_t* p = row;
   const uint32_t* d = row + 8;
@@ -202,16 +204,10 @@ STARK_HD void fe_acc_add_acc(fe_acc& acc, const fe_acc& other) {
   }
 }
 
-// The bit a part's verdict sets: 1, 2, 4, 4 by role.
-STARK_HD uint32_t stark_spot_bit(int role) {
-  return role >= 2 ? 4u : 1u << role;
-}
-
-// Position i in one thread: the four parts in turn, the lincomb halves
-// added before their one reduction.
+// Position i in one thread (the host build): the four parts in turn, the
+// lincomb halves added before their one reduction.
 template <int POWER>
 STARK_HD void stark_spot_position(const stark_spot_args& g, long long i) {
-  uint32_t bits = 0;
   fe_acc half;
 #pragma unroll
   for (int role = 0; role < 4; ++role) {
@@ -223,18 +219,17 @@ STARK_HD void stark_spot_position(const stark_spot_args& g, long long i) {
       continue;
     }
     if (role == 3) fe_acc_add_acc(acc, half);
-    if (fe_eq(in.lhs, fe_reduce(acc))) bits |= stark_spot_bit(role);
+    g.out[3 * i + (role == 3 ? 2 : role)] = fe_eq(in.lhs, fe_reduce(acc));
   }
-  g.out[i] = bits;
 }
 
 #if defined(__CUDACC__)
 // Four lanes a position (lanes 4i .. 4i+3 of the grid), one part each.
 // Lanes past the last position redo the last one (every lane of the warp
-// takes part in the shuffles) and store nothing.
+// takes part in the shuffle) and store nothing.
 template <int POWER>
 __global__ void __launch_bounds__(STARK_BLOCK)
-stark_spot_lanes_kernel(const __grid_constant__ stark_spot_args g) {
+stark_spot_kernel(const __grid_constant__ stark_spot_args g) {
   const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long i = t >> 2;
   const int role = (int)(t & 3);
@@ -248,18 +243,8 @@ stark_spot_lanes_kernel(const __grid_constant__ stark_spot_args g) {
     other.v[k] = role >= 2 ? o : 0u;
   }
   fe_acc_add_acc(acc, other);
-  uint32_t bit = fe_eq(in.lhs, fe_reduce(acc)) ? stark_spot_bit(role) : 0u;
-  bit |= __shfl_xor_sync(0xFFFFFFFFu, bit, 1);
-  bit |= __shfl_xor_sync(0xFFFFFFFFu, bit, 2);
-  if (role == 0 && i < g.n) g.out[i] = bit;
-}
-
-// One thread a position: the host loop's order on the card.
-template <int POWER>
-__global__ void __launch_bounds__(STARK_BLOCK)
-stark_spot_thread_kernel(const __grid_constant__ stark_spot_args g) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < g.n) stark_spot_position<POWER>(g, i);
+  const bool ok = fe_eq(in.lhs, fe_reduce(acc));
+  if (role < 3 && i < g.n) g.out[3 * i + role] = ok;
 }
 #endif
 
@@ -270,14 +255,13 @@ static bool stark_spot_aligned(const void* p, long long stride) {
 
 static bool stark_pow2(long long x) { return x > 0 && (x & (x - 1)) == 0; }
 
-// Kernel D over args->n positions, `group` a proof; power 2 or 3; lanes 4
-// (a position's four parts on four lanes) or 1 (one thread a position).
-// Returns 1 (cudaErrorInvalidValue) without writing anything for a bad
-// argument, else cudaGetLastError().
+// Kernel D over args->n positions, `group` a proof; power 2 or 3.  Returns
+// 1 (cudaErrorInvalidValue) without writing anything for a bad argument,
+// else cudaGetLastError().
 extern "C" int stark_spot_checks(const void* args, void* stream) {
   const stark_spot_args& g = *static_cast<const stark_spot_args*>(args);
-  if ((g.power != 2 && g.power != 3) || (g.lanes != 1 && g.lanes != 4) ||
-      g.group <= 0 || g.n < 0 || g.n % g.group != 0 || !stark_pow2(g.rows) ||
+  if ((g.power != 2 && g.power != 3) || g.group <= 0 || g.n < 0 ||
+      g.n > 0x7FFFFFFFLL || g.n % g.group != 0 || !stark_pow2(g.rows) ||
       g.log_steps < 0 || g.log_steps > 62)
     return 1;
   if (g.n == 0) return 0;
@@ -294,19 +278,11 @@ extern "C" int stark_spot_checks(const void* args, void* stream) {
     return 1;
 #if defined(__CUDACC__)
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long threads = g.n * g.lanes;
-  const unsigned grid = (unsigned)((threads + STARK_BLOCK - 1) / STARK_BLOCK);
-  if (g.lanes == 4) {
-    if (g.power == 3)
-      stark_spot_lanes_kernel<3><<<grid, STARK_BLOCK, 0, st>>>(g);
-    else
-      stark_spot_lanes_kernel<2><<<grid, STARK_BLOCK, 0, st>>>(g);
-  } else {
-    if (g.power == 3)
-      stark_spot_thread_kernel<3><<<grid, STARK_BLOCK, 0, st>>>(g);
-    else
-      stark_spot_thread_kernel<2><<<grid, STARK_BLOCK, 0, st>>>(g);
-  }
+  const unsigned grid = (unsigned)((4 * g.n + STARK_BLOCK - 1) / STARK_BLOCK);
+  if (g.power == 3)
+    stark_spot_kernel<3><<<grid, STARK_BLOCK, 0, st>>>(g);
+  else
+    stark_spot_kernel<2><<<grid, STARK_BLOCK, 0, st>>>(g);
   return (int)cudaGetLastError();
 #else
   (void)stream;

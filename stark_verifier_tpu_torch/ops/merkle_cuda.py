@@ -194,7 +194,7 @@ def walk_leaf_levels(value_words, sibling_words, witness_words, tree_index,
         [(value_words, sibling_words, witness_words, tree_index, levels)])[0]
 
 
-def walk_quads_groups(groups: list, _entry="stark_walk_quads_groups") -> list:
+def walk_quads_groups(groups: list) -> list:
     """walk_quads over several groups in one launch of kernel B.
 
     groups: (value, sibling, witness, tree_index, levels) tuples, each as
@@ -213,8 +213,8 @@ def walk_quads_groups(groups: list, _entry="stark_walk_quads_groups") -> list:
                         (witness_words, "witness"),
                         (tree_index, "tree_index")):
             _check_words(t, name, dev)
-        if vw not in (8, 24):
-            raise ValueError(f"value width {vw} words: the kernel takes 8 or 24")
+        if vw != 8:
+            raise ValueError(f"value width {vw} words: the kernel takes 8")
         if not lead or lead[-1] % 4:
             raise ValueError("walk_quads: the branch count must be a "
                              "multiple of 4")
@@ -236,7 +236,7 @@ def walk_quads_groups(groups: list, _entry="stark_walk_quads_groups") -> list:
             desc.ok = ok.data_ptr()
             descs.append(desc)
     if descs:
-        _launch(_entry, "walk_quads", descs, dev)
+        _launch("stark_walk_quads_groups", "walk_quads", descs, dev)
     return outs
 
 
@@ -247,7 +247,8 @@ def walk_quads(value_words, sibling_words, witness_words, tree_index,
     node, branch 4q's tree index is even (4-aligned), and b's sibling is b+1's
     value (the caller checks both).
 
-    value/sibling [..., 4q, vw] (vw = 8 or 24); witness_words [..., 4q,
+    value/sibling [..., 4q, 8] (the plain version takes any width);
+    witness_words [..., 4q,
     >=levels+1, 8]; tree_index [..., 4q] the 2^(w+2)+permuted start index
     (int32, < 2^31).  Returns (digests [..., q, 8] after the combine and
     `levels` more levels of branch 4q's witness, ok [..., q] int32: 1 where

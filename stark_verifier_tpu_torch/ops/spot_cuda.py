@@ -117,10 +117,10 @@ def _proof_stride(t: torch.Tensor, nlead: int, name: str) -> int:
 
 
 def _spot_args(main_value, lincomb_value, positions, kh, ic1, ic0,
-               tables: SpotTables, k_rows, power: int, lanes: int) -> tuple:
-    """(the kernel's SpotArgs, the bits [..., n] it writes, the tensors the
-    arguments point into) for spot_checks' operands on their device.  The
-    tensors must outlive the launch."""
+               tables: SpotTables, k_rows, power: int) -> tuple:
+    """(the kernel's SpotArgs, the verdicts [..., n, 3] bool it writes, the
+    tensors the arguments point into) for spot_checks' operands on their
+    device.  The tensors must outlive the launch."""
     dev = positions.device
     lead, n = positions.shape[:-1], positions.shape[-1]
     nlead = len(lead)
@@ -151,23 +151,22 @@ def _spot_args(main_value, lincomb_value, positions, kh, ic1, ic0,
         raise ValueError("spot_checks: g2 / z / z2 tables differ in rows")
     positions = positions.contiguous()
     k_rows = None if k_rows is None else k_rows.contiguous()
-    bits = torch.empty(lead + (n,), dtype=torch.int32, device=dev)
+    ok = torch.empty(lead + (n, 3), dtype=torch.bool, device=dev)
     args = _build.SpotArgs(
         main_value.data_ptr(), lincomb_value.data_ptr(), positions.data_ptr(),
         kh.data_ptr(), ic1.data_ptr(), ic0.data_ptr(), tables.g2.data_ptr(),
         tables.z.data_ptr(), tables.z2.data_ptr(), tables.k.data_ptr(),
-        None if k_rows is None else k_rows.data_ptr(), bits.data_ptr(),
+        None if k_rows is None else k_rows.data_ptr(), ok.data_ptr(),
         _proof_stride(main_value, nlead, "main_value"),
         _proof_stride(lincomb_value, nlead, "lincomb_value"),
         _proof_stride(kh, nlead, "kh"), _proof_stride(ic1, nlead, "ic1"),
         _proof_stride(ic0, nlead, "ic0"), rows, tables.k.shape[0], n,
-        bits.numel(), tables.log_steps, power, lanes)
-    return args, bits, (positions, k_rows)
+        ok.numel() // 3, tables.log_steps, power)
+    return args, ok, (positions, k_rows)
 
 
 def spot_checks(main_value, lincomb_value, positions, kh, ic1, ic0,
-                tables: SpotTables, k_rows=None, power: int = 3,
-                lanes: int = 4):
+                tables: SpotTables, k_rows=None, power: int = 3):
     """Fused transition / boundary / lincomb checks at every spot position.
 
     main_value [..., 2n, 24] the main trace's value rows (rows 2k, 2k+1 at
@@ -176,16 +175,16 @@ def spot_checks(main_value, lincomb_value, positions, kh, ic1, ic0,
     hash words; ic1/ic0 [..., 16] canonical limbs of the boundary
     interpolant; tables the packed statement tables; k_rows [..., n, 8]
     packed K(x) rows in place of the K table's, or None; power: transition
-    exponent (2 or 3); lanes: 4 (a position's four parts on four lanes) or
-    1 (one thread a position).  Returns ok [..., n, 3] bool."""
+    exponent (2 or 3).  Returns ok [..., n, 3] bool: transition, boundary,
+    lincomb."""
     if power not in (2, 3):
         raise ValueError(f"unsupported transition power {power}")
     if positions.device.type == "cpu":
         return spot_checks_plain(main_value, lincomb_value, positions, kh,
                                  ic1, ic0, tables, k_rows, power)
     dev = positions.device
-    args, bits, keep = _spot_args(main_value, lincomb_value, positions, kh,
-                                  ic1, ic0, tables, k_rows, power, lanes)
+    args, ok, keep = _spot_args(main_value, lincomb_value, positions, kh,
+                                ic1, ic0, tables, k_rows, power)
     lib = _build.load()
     with torch.cuda.device(dev):
         rc = lib.stark_spot_checks(
@@ -193,5 +192,4 @@ def spot_checks(main_value, lincomb_value, positions, kh, ic1, ic0,
     _build.check(rc, "stark_spot_checks")
     launches["spot_checks"] += 1
     del keep        # the launch is queued: the copies may go back to the pool
-    return torch.stack([(bits & 1) != 0, (bits & 2) != 0, (bits & 4) != 0],
-                       dim=-1)
+    return ok

@@ -357,7 +357,7 @@ def verify_mimc_proof(tree, inp, output_limbs, tables, cfg: StarkConfig,
         tree["main"]["value"], tree["lincomb"]["value"], positions, kh, i_c1,
         i_c0, _spot_tables(tables, cfg, dev), k_rows,
         power=cfg.power)                                   # [..., 80, 3]
-    checks.append(oks.all(dim=-1).all(dim=-1))
+    checks.append(oks.flatten(-2).all(dim=-1))
 
     ok = checks[0]
     for c in checks[1:]:

@@ -240,7 +240,7 @@ def test_host_walk_quads_reject_a_bad_table(hostlib, fault):
     out.fill_(7)
     ok.fill_(7)
     if fault == "width":
-        d.vw = 5
+        d.vw = d.vstride = 24                        # A's width, not B's
     elif fault == "no_ok":
         d.ok = None
     elif fault == "witness_alignment":
@@ -320,12 +320,12 @@ def _spot_operands(rng, b, g, power, per_position_k=False):
     return (main, lin, pos, kh, ic1, ic0, tables, k_rows)
 
 
-def _host_spot(hostlib, ops, power, lanes=4):
-    args, bits, keep = spot_cuda._spot_args(*ops, power, lanes)
-    bits.fill_(9)
+def _host_spot(hostlib, ops, power):
+    args, ok, keep = spot_cuda._spot_args(*ops, power)
+    ok.view(torch.uint8).fill_(9)
     rc = hostlib.stark_spot_checks(args, None)
-    return rc, torch.stack([(bits & 1) != 0, (bits & 2) != 0,
-                            (bits & 4) != 0], -1), bits
+    assert ok.view(torch.uint8).max() <= 1          # every byte written
+    return rc, ok
 
 
 @pytest.mark.parametrize("power", [3, 2])
@@ -337,10 +337,9 @@ def test_host_spot_checks(hostlib, power):
     want = spot_cuda.spot_checks_plain(*ops, power=power)
     assert want[0, 1, 0] and want[1, 2, 2] and want[2, 0, 1]
     assert not want.all()
-    for lanes in (4, 1):
-        rc, got, _ = _host_spot(hostlib, ops, power, lanes)
-        assert rc == 0
-        np.testing.assert_array_equal(got.numpy(), want.numpy())
+    rc, got = _host_spot(hostlib, ops, power)
+    assert rc == 0
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
 
 
 def test_host_spot_boundary_holds(hostlib):
@@ -352,31 +351,31 @@ def test_host_spot_boundary_holds(hostlib):
     want = spot_cuda.spot_checks_plain(*ops, power=3)
     assert want[2, 0].tolist() == [False, True, False]
     assert want[0, 1, 0] and want[1, 2, 2]
-    rc, got, _ = _host_spot(hostlib, ops, 3)
+    rc, got = _host_spot(hostlib, ops, 3)
     assert rc == 0
     np.testing.assert_array_equal(got.numpy(), want.numpy())
     ops[4], ops[5] = ops[4][0], ops[5][0]            # one row for all
     want = spot_cuda.spot_checks_plain(*ops, power=3)
-    args, _, _ = spot_cuda._spot_args(*ops, 3, 4)
+    args, _, _ = spot_cuda._spot_args(*ops, 3)
     assert (args.ic1_stride, args.ic0_stride, args.main_stride) == (0, 0, 240)
-    rc, got, _ = _host_spot(hostlib, ops, 3)
+    rc, got = _host_spot(hostlib, ops, 3)
     assert rc == 0
     np.testing.assert_array_equal(got.numpy(), want.numpy())
 
 
-@pytest.mark.parametrize("fault", ["power", "lanes", "rows", "k_rows",
+@pytest.mark.parametrize("fault", ["power", "positions", "rows", "k_rows",
                                    "main_alignment", "group", "log_steps"])
 def test_host_spot_rejects_bad_arguments(hostlib, fault):
     """An argument kernel D cannot take: the entry point returns 1 and
     writes nothing."""
     rng = np.random.RandomState(2)
     ops = _spot_operands(rng, 3, 4, 3)
-    args, bits, keep = spot_cuda._spot_args(*ops, 3, 4)
-    bits.fill_(9)
+    args, ok, keep = spot_cuda._spot_args(*ops, 3)
+    ok.view(torch.uint8).fill_(9)
     if fault == "power":
         args.power = 4
-    elif fault == "lanes":
-        args.lanes = 2
+    elif fault == "positions":
+        args.n = 1 << 31                             # 32-bit position index
     elif fault == "rows":
         args.rows = 24
     elif fault == "k_rows":
@@ -388,7 +387,7 @@ def test_host_spot_rejects_bad_arguments(hostlib, fault):
     else:
         args.log_steps = 63
     assert hostlib.stark_spot_checks(args, None) == 1
-    assert (bits == 9).all()
+    assert (ok.view(torch.uint8) == 9).all()
 
 
 @pytest.mark.parametrize("shape_a,shape_b", [
