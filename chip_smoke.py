@@ -357,13 +357,6 @@ def check_rows(gen, ops, tables, cfg, b, reps):
                     (b * nl, ops["probe_eval4_special_x"])], reps)
 
 
-def spot_tables(tables, cfg):
-    return spot_cuda.SpotTables(
-        *(dev_io.to_tensor(fp.limbs_to_le_words(getattr(tables, name)), DEV)
-          for name in ("g2_powers", "z_table", "z2_table", "k_table")),
-        log_steps=cfg.log_steps)
-
-
 def spot_inputs(gen, cfg, tabs, b, power, k_rows):
     """Kernel D's operands at the path's shapes: the proof's main and
     lincomb value rows (raw words, 0xFFFFFFFF words mixed in), positions in
@@ -629,7 +622,7 @@ def kernel_phase(cfg, tables, ops):
     c_case = check_rows(gen, ops, tables, cfg, b, 20)
     # kernel D: power 3 on the static path first (the row's numbers), power
     # 2, and K rows (the runtime-statement path)
-    tabs = spot_tables(tables, cfg)
+    tabs = V._spot_tables(tables, cfg, DEV)
     d_cases = [check_spot(gen, ops, cfg, tabs, b, cfg.power, 20),
                check_spot(gen, ops, cfg, tabs, b, 2, 20),
                check_spot(gen, ops, cfg, tabs, b, cfg.power, 20, k_rows=True)]

@@ -45,10 +45,12 @@
 // and hashes them with one compression, whose xors and rotates only the ALU
 // pipe runs (blake2s.cuh: 650 of them a compression in the SASS, 64 lanes an
 // SM); the adds go to the FMA pipe.  At the verifier's shapes (512 proofs,
-// the groups of a call site in one launch) A and F run at 1.1x to 1.8x of
-// that bound on an H100 80GB HBM3 at 700 W.  A thread loads a level's
-// witness row as the level starts: loading it a level ahead in registers did
-// not pay there (the grouped walks within 2 %, the quad chain 20 % slower).
+// the groups of a call site in one launch) A, B and F run at 1.1x to 1.8x
+// of that bound on an H100 80GB HBM3 at 700 W; the launches of 200 threads
+// a proof (A's five column groups, B's five quad groups: one partial wave)
+// at the top of that range.  A thread loads a level's witness row as the
+// level starts: loading it a level ahead in registers did not pay there
+// (the grouped walks within 2 %, the chain of B's levels 20 % slower).
 #include "blake2s.cuh"
 
 #define STARK_WALK_MAX_GROUPS 32

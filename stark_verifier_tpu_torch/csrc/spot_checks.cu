@@ -39,9 +39,11 @@
 // lanes 0, 1 and 2 each write their verdict's byte.  The host build runs
 // the four parts of a position in turn through the same functions: that is
 // what the g++ tests hold against the plain version.  On an H100 80GB HBM3
-// at 700 W one thread a position on the same operands ran as fast (0.0237
-// ms at 512 proofs, wrapper included): four times the warps in flight did
-// not move it, so latency hiding is not what holds it at 3.6x of its bound.
+// at 700 W, 512 proofs: 0.015 ms, 3.1x of its bound.  One thread a position
+// on the same operands ran exactly as fast as four lanes, so four times the
+// warps in flight did not move it; a lane issues 1,595 instructions (the
+// SASS), 1.6x the bound's count a position, and runs at about half of the
+// issue rate.
 #include "field256.cuh"
 
 // Where an operand slot of a part comes from, and how it is read.

@@ -248,9 +248,9 @@ def walk_quads(value_words, sibling_words, witness_words, tree_index,
     value (the caller checks both).
 
     value/sibling [..., 4q, 8] (the plain version takes any width);
-    witness_words [..., 4q,
-    >=levels+1, 8]; tree_index [..., 4q] the 2^(w+2)+permuted start index
-    (int32, < 2^31).  Returns (digests [..., q, 8] after the combine and
+    witness_words [..., 4q, >=levels+1, 8]; tree_index [..., 4q] the
+    2^(w+2)+permuted start index (int32, < 2^31).  Returns (digests
+    [..., q, 8] after the combine and
     `levels` more levels of branch 4q's witness, ok [..., q] int32: 1 where
     branches 4q, 4q+1 carry H(v2 || s2) and 4q+2, 4q+3 carry H(v0 || s0) as
     their first witness, else 0).  A one-group launch of
