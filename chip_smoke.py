@@ -19,11 +19,15 @@ the CPU):
   3. kernels  -- each kernel against its plain PyTorch version on the card,
                  bit-exact, at the shapes its path gives it (the Merkle walks
                  A, B and F also with all groups of a call site in one
-                 launch, as the path runs them; D at power 3 and 2, with its
-                 K table and with K rows), with the wrapper's time (CUDA events
+                 launch, as the path runs them; C on the proof's strided poly
+                 rows, its ok bytes and evaluation words; D at power 3 and 2,
+                 with its K table and with K rows; the multiply's edge
+                 operands in C, D and E), with the wrapper's time (CUDA events
                  around Python calls) and its device time (calls replayed
                  from a CUDA graph) beside the least time the card could
-                 take;
+                 take; then C's other forms and C, D and E under the
+                 multiply on PTX carry chains, each in turns with the
+                 kernels as built;
   4. golden   -- a full-size MiMC-STARK proof (2^13 steps) is generated with
                  the pure-Python prover and accepted by the pure-Python oracle;
   5. main path -- 1,024 proofs (12 of them tampered, one per protocol site) in
@@ -52,6 +56,7 @@ just after.  The last line printed is {"ok": true, "device": {...}}; the line
 before it holds one JSON record per kernel.
 """
 
+import contextlib
 import json
 import os
 import statistics
@@ -122,13 +127,21 @@ ALU_PER_S = 67e12 / 4
 #   kernels C, D and E: the probes of csrc/probes/work.cu, the products,
 #     reductions, adds and compares of a unit of the function, with no
 #     loads, stores, moves or limb packing; C's special_x is canonicalized
-#     and squared once per (proof, level), as the function needs, though
-#     the kernel redoes it in every thread.
+#     once per (proof, level), as the function needs, though the kernel
+#     redoes it in every thread.
 SASS_COMPRESS = {"walk_leaf_levels": "stark_walk_groups_kernelILi0",
                  "walk_branches": "stark_walk_groups_kernelILi1",
                  "walk_quads": "stark_walk_groups_kernelILi2"}
 SASS_PROBES = ("probe_eval4_row", "probe_eval4_special_x", "probe_spot3",
                "probe_spot2", "probe_mul")
+PTX_MUL = "STARK_PTX_MUL"     # the multiply on PTX carry chains, a variant
+
+# operands that the 256-bit multiply must carry right: 0, 1, p - 1, p,
+# p + 1, 2^256 - 1, and limb patterns whose products carry through every
+# column
+EDGES = [0, 1, P - 1, P, P + 1, 2**256 - 1, 2**256 - 2**32, 2**224 - 1,
+         int("FFFFFFFF00000000" * 4, 16), int("00000000FFFFFFFF" * 4, 16),
+         2**255, (P - 1) // 2]
 
 SITES = [
     ("merkle_root",), ("l_merkle_root",),
@@ -226,16 +239,24 @@ def rand_words(gen, shape):
     return w
 
 
+def edge_limbs():
+    return dev_io.to_tensor(fp.ints_to_limbs(EDGES), DEV)
+
+
+def edge_words():
+    """The edge values as the proof's 8 big-endian words."""
+    return F.limbs_to_words_be(edge_limbs())
+
+
 def rand_limbs(gen, shape):
     """Random raw 256-bit values as [..., 16] limbs; the first few are the
-    edge values 0, 1, p-1, p, p+1, 2^256-1."""
+    edge values (EDGES) where there is room for all of them."""
     l = torch.randint(0, 1 << 16, shape + (16,), generator=gen, device=DEV,
                       dtype=torch.int64).to(torch.int32)
-    edge = fp.ints_to_limbs([0, 1, P - 1, P, P + 1, 2**256 - 1])
     flat = l.view(-1, 16)
-    if flat.shape[0] >= 6:
-        flat[:6] = torch.from_numpy(edge.astype(np.int32)).to(DEV)
-    flat[6::13] = 0xFFFF             # all-ones values (>= p)
+    if flat.shape[0] >= len(EDGES):
+        flat[:len(EDGES)] = edge_limbs()
+    flat[len(EDGES)::13] = 0xFFFF    # all-ones values (>= p)
     return l
 
 
@@ -250,16 +271,26 @@ def start_indices(lead, depth, gen):
 # phase 3: each kernel against its plain version
 # ---------------------------------------------------------------------------
 
-def measure(label, call, plain, got, want, moved, work, reps):
+def measure(label, call, plain, got, want, moved, work, reps, full=None):
     """A kernel case: its results against the plain version's, the wrapper's
     and the device's time of `call`, the plain version's, and the bound for
-    `work` (as bound() takes it) moving `moved` bytes."""
+    `work` (as bound() takes it) moving `moved` bytes.  The record keeps,
+    under "_again", `call` and a recheck of `full` (the call that returns
+    what `got` holds; `call` itself by default) against `want`, for the
+    multiply trial."""
     err = max(max_abs_err(g, w) for g, w in zip(got, want))
     ms, dms = time_ms(call, reps), device_ms(call)
     plain_ms = time_ms(plain, 2)
     bms, by, parts = bound(moved, work)
+
+    def recheck():
+        out = (full or call)()
+        out = list(out) if isinstance(out, (tuple, list)) else [out]
+        return max(max_abs_err(g, w) for g, w in zip(out, want))
+
     return {"shape": label, "max_abs_err": err, "ms": ms, "device_ms": dms,
-            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, **parts}
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, **parts,
+            "_again": (call, recheck)}
 
 
 def walk_inputs(gen, b, n, vw, depth, levels):
@@ -334,27 +365,72 @@ def check_quads(gen, ops, b, specs, label, reps):
                    [(compressions, ops["walk_quads"])], reps)
 
 
-def check_rows(gen, ops, tables, cfg, b, reps):
+def fri_inputs(gen, cfg, tables, g2_words, b):
+    """Kernel C's operands at the path's shapes: b proofs' poly rows read in
+    place from wider rows (a proof stride beyond them, as a slice of a
+    batch may have), committed values, column indices over the 32-bit range
+    (0 and the top on the last level), roots (the edge values among them)
+    and the verifier's packed power table.  Random committed values fail:
+    they are rewritten so that every third query holds, except a tampered
+    word at queries 6 and 27, and at proof 1, level 2, query 3, whose rows
+    are the constant 5 and whose committed value is 5 + p, right but not
+    canonical; at proof 2, level 1, queries 3, 9, 12 and 15 the rows are
+    constants the compare must carry right.  Returns (operands, the ok
+    bytes those rewrites make)."""
     nl, q = cfg.fri_levels, cfg.fri_queries
-    g2t = dev_io.to_tensor(tables.g2_powers, DEV)
-    mask = cfg.precision - 1
-    e1 = torch.randint(0, cfg.precision, (b, nl, q), generator=gen,
-                       device=DEV, dtype=torch.int64)
-    x1_inv = g2t[(-e1) & mask]
-    x1sq_inv = g2t[(-2 * e1) & mask]
-    ys = F.limbs_to_words_be(rand_limbs(gen, (b, nl, q, 4))).contiguous()
-    ys.view(-1)[5::17] = -1                      # 0xFFFFFFFF words
-    sx = rand_limbs(gen, (b, nl))                # raw, some >= p
-    args = (x1_inv, x1sq_inv, ys, sx, tables.quartic_ginv, tables.inv4)
-    got = fri_cuda.eval4_rows(*args)
+    wide = rand_words(gen, (b, nl * 4 * q * 8 + 64))
+    poly = wide[:, 64:].view(b, nl, 4 * q, 8)
+    ne = len(EDGES)
+    poly[0].reshape(-1, 8)[:ne] = edge_words()
+    col = rand_words(gen, (b, nl, q, 8))
+    ys = torch.randint(0, 2**32, (b, nl, q), generator=gen, device=DEV,
+                       dtype=torch.int64)
+    ys[0, -1, :2] = torch.tensor([0, 2**32 - 1], device=DEV)
+    lroot, root2 = rand_words(gen, (b, 8)), rand_words(gen, (b, nl, 8))
+    lroot[:ne] = edge_words()
+    root2[:ne, 1] = edge_words()
+    five = F.limbs_to_words_be(limbs_on_card([5, P + 5]))
+    poly[1, 2, 0:4] = five[[0, 1, 0, 0]]
+    poly[1, 2, 12:16] = five[1]
+    # constant rows c at held queries: 4 c carries past 2^256 once folded
+    # (the first two), or not
+    consts = F.limbs_to_words_be(limbs_on_card(
+        [2**255 - 1, 3 * 2**254 - 1, P - 1, 0]))
+    for k, c in zip((3, 9, 12, 15), consts):
+        poly[2, 1, 4 * k:4 * k + 4] = c
+    ops = (poly, col, ys, lroot, root2, g2_words,
+           np.asarray(tables.quartic_ginv), np.asarray(tables.inv4))
+    _, lhs = fri_cuda.fri_rows_plain(*ops)
+    col[:, :, 0::3] = lhs[:, :, 0::3]
+    col[:, :, 6::21, 5] ^= 1
+    col[1, 2, 3] = five[1]
+    expect = torch.zeros((b, nl, q), dtype=torch.bool, device=DEV)
+    expect[:, :, 0::3] = True
+    expect[:, :, 6::21] = False
+    expect[1, 2, 3] = False
+    return ops, expect
+
+
+def check_rows(gen, ops, cfg, tables, g2_words, b, reps):
+    """Kernel C as the verifier calls it, its ok bytes and its evaluation
+    words against the plain version's."""
+    args, expect = fri_inputs(gen, cfg, tables, g2_words, b)
+    got = fri_cuda.fri_rows(*args, lhs=True)
     torch.cuda.synchronize()
-    want = fri_cuda.eval4_rows_plain(*args)
+    want = fri_cuda.fri_rows_plain(*args)
+    if not torch.equal(want[0], expect):
+        fail("row-check comparison inputs do not mix accepted and rejected "
+             "queries as intended")
+    nl, q = cfg.fri_levels, cfg.fri_queries
+    # what a row group needs: its four poly rows, its committed value, its
+    # index, its ok byte; a (proof, level) its special_x; the table once
+    moved = b * nl * q * (128 + 32 + 8 + 1) + b * nl * 32 + nbytes(g2_words)
     return measure(f"B={b} levels={nl} queries={q}",
-                   lambda: fri_cuda.eval4_rows(*args),
-                   lambda: fri_cuda.eval4_rows_plain(*args), [got], [want],
-                   nbytes(x1_inv, x1sq_inv, ys, sx, got),
+                   lambda: fri_cuda.fri_rows(*args),
+                   lambda: fri_cuda.fri_rows_plain(*args), got, want, moved,
                    [(b * nl * q, ops["probe_eval4_row"]),
-                    (b * nl, ops["probe_eval4_special_x"])], reps)
+                    (b * nl, ops["probe_eval4_special_x"])], reps,
+                   full=lambda: fri_cuda.fri_rows(*args, lhs=True))
 
 
 def spot_inputs(gen, cfg, tabs, b, power, k_rows):
@@ -379,6 +455,12 @@ def spot_inputs(gen, cfg, tabs, b, power, k_rows):
     # (input making stays off the multiply kernel)
     mul = field_cuda.mul_mod_plain
     mv = main.view(b, n, 2, 3, 8)
+    # the multiply's edge operands: P and D of proof 0's first positions,
+    # and its raw k's
+    ew = edge_words()
+    mv[0, :len(EDGES), 0, 0] = ew
+    mv[0, :len(EDGES), 0, 1] = ew.flip(0)
+    kh[0] = ew[[5, 3, 8, 9]]
     p, d, bb = (F.canon(F.words_be_to_limbs(mv[..., 0, j, :]))
                 for j in range(3))
     mask = cfg.precision - 1
@@ -438,10 +520,15 @@ def check_mul(gen, ops, shape_a, shape_b, reps, upper_half=False):
                              device=DEV)
         blocks[..., half:, :] = a
         a = blocks[..., half:, :]
+    ne = len(EDGES)
     if shape_b:
         b = b.flip(0).contiguous()       # the edge values meet random ones
-        if b.shape[0] >= 6 and a.shape == b.shape:
-            b[:6] = a[:6].flip(0)        # ... and each other
+        if a.shape == b.shape and b.shape[0] >= ne * ne:
+            # ... and every pair of edge values
+            a[:ne * ne] = edge_limbs().repeat_interleave(ne, dim=0)
+            b[:ne * ne] = edge_limbs().repeat(ne, 1)
+        elif a.shape == b.shape and b.shape[0] >= ne:
+            b[:ne] = a[:ne].flip(0)      # ... and each other
     got = field_cuda.mul_mod(a, b)
     torch.cuda.synchronize()
     want = field_cuda.mul_mod_plain(a, b)
@@ -579,12 +666,21 @@ def sass_phase():
         ops[key] = (one["alu"] + one["adds"], one["alu"])
         log(f"sass {key}: a compression {json.dumps(one)}; (all, ALU-only) "
             f"{ops[key]}")
+    for name in rep:
+        if any(k in name for k in ("fri_rows", "spot_kernel", "mul_mod")):
+            log(f"sass {name}: a thread's path {json.dumps(rep[name]['path'])}")
+    try:
+        chains = sass.work(defines=(PTX_MUL,))
+    except (OSError, subprocess.SubprocessError) as e:
+        fail(f"the probes with the carry-chain multiply could not be built "
+             f"or read: {e} {getattr(e, 'stderr', '') or ''}")
     for key in SASS_PROBES:
-        if key not in work:
+        if key not in work or key not in chains:
             fail(f"sass: probe {key} not found in csrc/probes/work.cu's SASS")
         ops[key] = (work[key]["arith"], work[key]["alu_only"])
         log(f"sass {key}: {json.dumps(work[key])}; (all, ALU-only) "
-            f"{ops[key]}")
+            f"{ops[key]}; with the carry-chain multiply "
+            f"{json.dumps(chains[key])}")
     return ops
 
 
@@ -619,10 +715,11 @@ def kernel_phase(cfg, tables, ops):
         b_cases.append(check_quads(
             gen, ops, b, [spec], f"B={b} quads={spec[0]} depth={spec[1]} "
             f"levels={spec[2]}", 20))
-    c_case = check_rows(gen, ops, tables, cfg, b, 20)
+    # kernel C and D read the verifier's packed tables
+    tabs = V._spot_tables(tables, cfg, DEV)
+    c_case = check_rows(gen, ops, cfg, tables, tabs.g2, b, 20)
     # kernel D: power 3 on the static path first (the row's numbers), power
     # 2, and K rows (the runtime-statement path)
-    tabs = V._spot_tables(tables, cfg, DEV)
     d_cases = [check_spot(gen, ops, cfg, tabs, b, cfg.power, 20),
                check_spot(gen, ops, cfg, tabs, b, 2, 20),
                check_spot(gen, ops, cfg, tabs, b, cfg.power, 20, k_rows=True)]
@@ -686,7 +783,7 @@ def kernel_phase(cfg, tables, ops):
                tpu + "merkle_pallas.py:180", a_cases),
         record("walk_quads", src + "merkle_walk.cu",
                tpu + "merkle_pallas.py:198", b_cases),
-        record("eval4_rows", src + "fri_rows.cu",
+        record("fri_rows", src + "fri_rows.cu",
                tpu + "fri_pallas.py:92", [c_case]),
         record("spot_checks", src + "spot_checks.cu",
                tpu + "spot_pallas.py:56", d_cases),
@@ -695,6 +792,60 @@ def kernel_phase(cfg, tables, ops):
         record("walk_branches", src + "merkle_walk.cu",
                tpu + "merkle_pallas.py:117", f_cases),
     ]
+
+
+def case_of(kernels, name, at):
+    return next(k for k in kernels if k["name"] == name)["cases"][at]
+
+
+def in_turns(label, case, setups):
+    """Device ms of `case`'s call under each of `setups` ((name, context
+    manager factory), ...), in the turns a, b, b, a, ..., each pass first
+    held bit-exact against the plain version again."""
+    call, recheck = case["_again"]
+    times = {name: [] for name, _ in setups}
+    for name, ctx in list(setups) + list(reversed(setups)):
+        with ctx():
+            err = recheck()
+            if err:
+                fail(f"{label} under {name}: max_abs_err {err}")
+            times[name].append(device_ms(call))
+    log(f"{label} [{case['shape']}], device ms in turns: " + "; ".join(
+        f"{name} {', '.join(f'{t:.4f}' for t in ts)}"
+        for name, ts in times.items()))
+    return times
+
+
+@contextlib.contextmanager
+def row_form(form):
+    saved, fri_cuda.FORM = fri_cuda.FORM, form
+    try:
+        yield
+    finally:
+        fri_cuda.FORM = saved
+
+
+def trials(kernels):
+    """Kernel C's ways of forming v, then C, D and E under the portable
+    multiply and the one on PTX carry chains, in turns."""
+    out = {"row_forms": in_turns(
+        "kernel C's forms of v", case_of(kernels, "fri_rows", 0),
+        [("u^2", lambda: row_form(0)),
+         ("u^2 in 80 registers", lambda: row_form(3)),
+         ("square", lambda: row_form(1)), ("shared", lambda: row_form(2))])}
+    cores = [("portable", contextlib.nullcontext),
+             ("carry chains", lambda: _build.variant(PTX_MUL))]
+    for name, at in (("fri_rows", 0), ("spot_checks", 0), ("mul_mod", -1)):
+        out[name] = in_turns(f"multiply trial: {name}",
+                             case_of(kernels, name, at), cores)
+    return out
+
+
+def public(kernels):
+    """The kernel records without the calls kept for the trials."""
+    return [{**k, "cases": [{key: v for key, v in c.items()
+                             if not key.startswith("_")}
+                            for c in k["cases"]]} for k in kernels]
 
 
 # ---------------------------------------------------------------------------
@@ -871,7 +1022,7 @@ def main_path(cfg, blob, tree_np, kernels):
     want = torch.ones(BATCH, dtype=torch.bool)
     want[1:1 + len(SITES)] = False
     verdicts = expect_verdicts("main path", verdicts, want)
-    shared = ("walk_leaf_levels", "walk_quads", "eval4_rows", "spot_checks")
+    shared = ("walk_leaf_levels", "walk_quads", "fri_rows", "spot_checks")
     require_launches("main path", counts, shared, idle=("walk_branches",))
     if counts["walk_leaf_levels"] != 2 * (BATCH // CHUNK):
         fail(f"the main path launched kernel A {counts['walk_leaf_levels']} "
@@ -914,7 +1065,7 @@ def unshared_path(cfg, blob, tree_np, tree, want, kernels, consts, out):
     verdicts, counts = counted(lambda: fn_u(tree))
     expect_verdicts("unshared path", verdicts, want)
     require_launches("unshared path", counts,
-                     ("walk_branches", "eval4_rows", "spot_checks"),
+                     ("walk_branches", "fri_rows", "spot_checks"),
                      idle=("walk_leaf_levels", "walk_quads"))
     if counts["walk_branches"] != 2 * (BATCH // CHUNK):
         fail(f"the unshared path launched kernel F {counts['walk_branches']} "
@@ -1014,7 +1165,7 @@ def runtime_statement_path(cfg, blob, tree, want, kernels, consts, out):
     expect_verdicts("runtime-statement path", verdicts, want)
     require_launches("runtime-statement path", counts,
                      ("mul_mod", "walk_leaf_levels", "walk_quads",
-                      "eval4_rows", "spot_checks"))
+                      "fri_rows", "spot_checks"))
     for k in kernels:
         if k["name"] == "mul_mod":
             k["launches"], k["launches_on"] = (counts["mul_mod"],
@@ -1134,6 +1285,7 @@ def main():
                 f"{c['alu_ms']:.4f})")
         if not k["match"]:
             fail(f"kernel {k['name']} disagrees with its plain version")
+    trial = trials(kernels)
 
     t0 = time.perf_counter()
     blob = golden_proof(cfg)
@@ -1199,7 +1351,8 @@ def main():
                      lambda: general(good))
 
     log(smi)
-    log(json.dumps({"kernels": kernels}))
+    log("trials: " + json.dumps(trial))
+    log(json.dumps({"kernels": public(kernels)}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -6,11 +6,15 @@ library with a plain C interface, loaded with ctypes.  The library lands in
 `build/` beside this file, named by a hash of the sources, so a changed
 source rebuilds and an unchanged one loads in milliseconds.  Nothing here
 runs at import: the first kernel launch triggers the build.  A failed build
-raises; there is no fallback.
+raises; there is no fallback.  variant() builds and selects a second
+library from the same sources with preprocessor defines (the multiply on
+PTX carry chains, STARK_PTX_MUL), so that two forms of a kernel can be
+timed in one process.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -27,7 +31,6 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _p, _ll, _i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-_u32p = ctypes.POINTER(ctypes.c_uint32)
 
 
 class WalkGroup(ctypes.Structure):
@@ -52,31 +55,47 @@ class SpotArgs(ctypes.Structure):
                 ("log_steps", _i), ("power", _i)]
 
 
+class FriRowsArgs(ctypes.Structure):
+    """The operands of kernel C (csrc/fri_rows.cu, struct
+    stark_fri_rows_args: the same fields in the same order)."""
+    _fields_ = [("poly", _p), ("col", _p), ("ys", _p), ("lroot", _p),
+                ("root2", _p), ("g2", _p), ("ok", _p), ("lhs", _p),
+                ("poly_stride", _ll), ("col_stride", _ll),
+                ("lroot_stride", _ll), ("root2_stride", _ll), ("rows", _ll),
+                ("levels", _ll), ("q", _ll), ("n", _ll),
+                ("ginv", ctypes.c_uint32 * 8), ("inv4", ctypes.c_uint32 * 8),
+                ("form", _i)]
+
+
 _groups = ctypes.POINTER(WalkGroup)
 # C entry points: every pointer and the stream are c_void_p (a bare Python
 # int would be passed as a 32-bit int and cut the pointer)
 SIGNATURES = {
     "stark_walk_leaf_levels_groups": [_groups, _i, _p],
     "stark_walk_quads_groups": [_groups, _i, _p],
-    "stark_eval4_rows": [_p, _p, _p, _p, _u32p, _u32p, _ll, _p, _ll, _p],
+    "stark_fri_rows": [ctypes.POINTER(FriRowsArgs), _p],
     "stark_spot_checks": [ctypes.POINTER(SpotArgs), _p],
     "stark_mul_mod": [_p, _ll, _p, _ll, _p, _ll, _p],
     "stark_walk_branches_groups": [_groups, _i, _p],
 }
 
-_state = {"lib": None, "seconds": None, "log": ""}
+_state = {"libs": {}, "defines": (), "seconds": None, "log": ""}
 
 
 def sources() -> list:
     return sorted(CSRC.glob("*.cu"))
 
 
-def source_hash() -> str:
+def flags(defines: tuple = ()) -> list:
+    return NVCC_FLAGS + [f"-D{d}" for d in defines]
+
+
+def source_hash(defines: tuple = ()) -> str:
     h = hashlib.sha256()
     for f in sorted(CSRC.glob("*.cu*")):
         h.update(f.name.encode())
         h.update(f.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(flags(defines)).encode())
     return h.hexdigest()[:16]
 
 
@@ -100,14 +119,14 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
-def _compile(nvcc: str, out: Path) -> str:
+def _compile(nvcc: str, out: Path, defines: tuple) -> str:
     tmp = BUILD_DIR / f"tmp-{os.getpid()}-{out.stem}"
     tmp.mkdir(parents=True, exist_ok=True)
     try:
         srcs = sources()
         objs = [tmp / (s.stem + ".o") for s in srcs]
         procs = [subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-c", str(s), "-o", str(o)],
+            [nvcc, *flags(defines), "-c", str(s), "-o", str(o)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             for s, o in zip(srcs, objs)]
         logs, failed = [], []
@@ -132,35 +151,71 @@ def _compile(nvcc: str, out: Path) -> str:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def library_path() -> Path:
-    """Where the library of this source state (and these flags) is built."""
-    return BUILD_DIR / f"libstark_kernels_{source_hash()}.so"
+def library_path(defines: tuple | None = None) -> Path:
+    """Where the library of this source state (and these flags) is built:
+    the selected variant's, or that of `defines`."""
+    if defines is None:
+        defines = _state["defines"]
+    return BUILD_DIR / f"libstark_kernels_{source_hash(defines)}.so"
 
 
 def load() -> ctypes.CDLL:
-    """The kernels' shared library, built first if this source state has not
-    been built here before."""
-    if _state["lib"] is not None:
-        return _state["lib"]
+    """The kernels' shared library (the selected variant's), built first if
+    this source state has not been built here before."""
+    defines = _state["defines"]
+    lib = _state["libs"].get(defines)
+    if lib is not None:
+        return lib
     t0 = time.perf_counter()
-    out = library_path()
+    out = library_path(defines)
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        _state["log"] = _compile(find_nvcc(), out)
-    _state["lib"] = declare(ctypes.CDLL(str(out)))
+        _state["log"] = _compile(find_nvcc(), out, defines)
+    lib = _state["libs"][defines] = declare(ctypes.CDLL(str(out)))
     _state["seconds"] = time.perf_counter() - t0
-    return _state["lib"]
+    return lib
+
+
+@contextlib.contextmanager
+def variant(*defines: str):
+    """Within the block every wrapper launches the kernels of the library
+    built with these preprocessor defines (built at the first launch)."""
+    prev = _state["defines"]
+    _state["defines"] = tuple(defines)
+    try:
+        yield
+    finally:
+        _state["defines"] = prev
 
 
 def build_seconds():
-    """Seconds the first load() took (build included), or None before it."""
+    """Seconds the last first load() of a variant took (build included), or
+    None before one."""
     return _state["seconds"]
 
 
 def build_log() -> str:
-    """nvcc's output of this process's build (register and spill counts from
-    -Xptxas -v); empty when the library was already built."""
+    """nvcc's output of this process's last build (register and spill
+    counts from -Xptxas -v); empty when the library was already built."""
     return _state["log"]
+
+
+def proof_stride(t, nlead: int, what: str) -> int:
+    """Word stride between consecutive proofs of the tensor `t` that an
+    entry point reads in place: its first `nlead` dims index the proofs
+    (they must collapse to one stride) and its other dims are dense.
+    `what` names the operand in the error."""
+    inner = t.shape[nlead:]
+    dense = 1
+    for size, stride in zip(reversed(inner), reversed(t.stride()[nlead:])):
+        if size > 1 and stride != dense:
+            raise ValueError(f"{what} rows must be dense")
+        dense *= size
+    for d in range(nlead - 1):
+        if t.shape[d] > 1 and t.stride(d) != t.stride(d + 1) * t.shape[d + 1]:
+            raise ValueError(f"{what}: the proof dims do not collapse to "
+                             "one stride")
+    return t.stride(nlead - 1) if nlead else 0
 
 
 def check(rc: int, name: str) -> None:

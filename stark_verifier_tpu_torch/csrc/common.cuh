@@ -39,3 +39,12 @@ STARK_HD void stark_st8(uint32_t* p, const uint32_t* v) {
   q[0] = a;
   q[1] = b;
 }
+
+// A row pointer the kernels read with 128-bit loads: 16-byte aligned, and
+// a stride (in words) that keeps every row so.
+inline bool stark_aligned16(const void* p, long long stride) {
+  return (reinterpret_cast<unsigned long long>(p) & 15u) == 0 &&
+         stride % 4 == 0;
+}
+
+inline bool stark_pow2(long long x) { return x > 0 && (x & (x - 1)) == 0; }

@@ -1,48 +1,90 @@
-// FRI row check: stark_eval4_rows (kernel C).
+// FRI row check: stark_fri_rows (kernel C).
 //
 // Replaces the TPU package's ops/fri_pallas.py kernel _make_row_kernel
-// (behind eval4_rows).  Per FRI query it canonicalizes the four raw row
-// values, evaluates the cubic through them at special_x by the even/odd
-// split (see ops/quartic.py for the algebra) and writes the canonical result
-// in the wire's 8-word big-endian encoding:
+// (behind eval4_rows) together with the verifier glue around it
+// (protocol/verify.py, _fri_checks): the limbs of special_x, the index
+// arithmetic and the two power-table gathers before the kernel, the compare
+// with the committed column value after it.  Per FRI row group (a proof, a
+// level l, a query k) one thread
 //
-//   4 P(sx) = (y0+y1+y2+y3) + ((y0+y2)-(y1+y3)) v + (e + f v) u
-//   e, f = (y0-y2) +- (y1-y3) g^-1,   u = sx / x1,   v = sx^2 / x1^2
+//   * reads the level's poly rows 4k .. 4k+3 where they lie in the proof
+//     (8 big-endian words each, raw) and canonicalizes them;
+//   * takes special_x, the previous level's root (l_merkle_root at level 0,
+//     root2[l-1] after), as a raw 256-bit value (the reference's unreduced
+//     special_x, main.rs:54) and canonicalizes it;
+//   * forms e1 = y * 4^l = y << 2l in 32-bit wrap-around (y the query's
+//     column index, as the reference's uint32 arithmetic) and gathers
+//     x1^-1 = G2^(-e1) from the packed power table (8 little-endian words a
+//     row, `rows` a power of two, indices masked by rows - 1);
+//   * evaluates the cubic through the four rows at special_x by the even /
+//     odd split (see ops/quartic.py for the algebra):
 //
-// One thread per row group, everything in registers; g^-1 and 4^-1 arrive as
-// kernel arguments (static per statement family).  x1^-1 and x1^-2 must be
-// canonical (power-table gathers are).  special_x arrives RAW: each thread
-// canonicalizes it and squares it itself.  The TPU package does that once
-// per (proof, level) ahead of its kernel; here one more multiply per thread
-// is cheaper than a separate pass of small launches.
+//       4 P(sx) = (y0+y1+y2+y3) + ((y0+y2)-(y1+y3)) v + (e + f v) u
+//       e, f = (y0-y2) +- (y1-y3) g^-1,   u = sx / x1,   v = sx^2 / x1^2
 //
-// Bound on an H100: bytes, level with instruction issue.  A row group moves
-// about 290 bytes (128 of rows, two 64-byte gathers, 32 out, a shared 64-byte
-// operand), and the function needs about 2,900 instructions of arithmetic
-// for it (products, reductions, adds and compares: probe_eval4_row of
-// csrc/probes/work.cu in the SASS, plus probe_eval4_special_x's 466 once a
-// (proof, level)): 10 a byte, the card's 10 (33.5 T instructions a second
-// over 3.35 TB/s).  The thread issues more: limb and byte packing, loads,
-// stores, and special_x again.
+//   * holds P(sx) against the raw committed column value c, as the
+//     reference's unreduced compare does (main.rs:84-86): c must be
+//     canonical, and then 4 c = 4 P(sx) (mod p), 4 being invertible, so
+//     that the product by 4^-1 is left out; writes one ok byte, and
+//     P(sx)'s 8 big-endian words when the caller asks for them (the one
+//     product more, then).
+//
+// How v is formed (`form`): STARK_FRI_U2 as u^2, which needs no square of
+// special_x and no second gather (G2 has order `rows`, so the table's row
+// -2 e1 is the square of its row -e1); STARK_FRI_SQUARE as sx^2 times the
+// gathered x1^-2, special_x squared in every thread; STARK_FRI_SHARED the
+// same with special_x canonicalized and squared once per (proof, level)
+// into shared memory.  All three give the same bits.
 #include "field256.cuh"
+
+#define STARK_FRI_U2 0
+#define STARK_FRI_SQUARE 1
+#define STARK_FRI_SHARED 2
+#define STARK_FRI_U2_ONE_WAVE 3  // U2 in at most 80 registers a thread
+
+// 5 warps: 4 (proof, level)s of 40 queries each at the default statement
+#define STARK_FRI_BLOCK 160
 
 struct stark_row_consts {
   fe ginv;  // g^-1 = g^3, g the quartic root of unity
   fe inv4;  // 4^-1
 };
 
-// special_x, raw, to its canonical value and square: the work of a (proof,
-// level), which each of its row groups' threads redoes here.
-STARK_HD void stark_eval4_special_x(const fe& sx, fe& sxc, fe& sx2) {
-  sxc = fe_canon(sx);
-  sx2 = fe_mul(sxc, sxc);
-}
+// The operands of kernel C (the host's ctypes structure and the kernel's
+// parameter share this layout).  Strides are in words between proofs; the
+// rest of each operand is dense.
+//   poly [proofs, levels, 4 q, 8]: the FRI poly value rows (big endian);
+//   col [proofs, levels, q, 8]: the committed column values (big endian);
+//   ys [proofs * levels * q] the column indices (int64, dense, < 2^32);
+//   lroot [proofs, 8], root2 [proofs, levels, 8]: the roots (big endian);
+//   g2 [rows, 8]: G2^i (little endian, canonical), rows a power of two;
+//   ok [proofs * levels * q] bytes; lhs [proofs * levels * q, 8] (big
+//   endian) or null.
+struct stark_fri_rows_args {
+  const uint32_t* poly;
+  const uint32_t* col;
+  const long long* ys;
+  const uint32_t* lroot;
+  const uint32_t* root2;
+  const uint32_t* g2;
+  uint8_t* ok;
+  uint32_t* lhs;
+  long long poly_stride;
+  long long col_stride;
+  long long lroot_stride;
+  long long root2_stride;
+  long long rows;
+  long long levels;
+  long long q;
+  long long n;
+  stark_row_consts k;
+  int form;
+};
 
-// The arithmetic of one row group: raw y0..y3, canonical special_x and its
-// square, x1^-1 and x1^-2 -> P(special_x), canonical.
+// The arithmetic of one row group: raw y0..y3, u and v -> 4 P(special_x),
+// canonical.
 STARK_HD fe stark_eval4_core(const fe& y0r, const fe& y1r, const fe& y2r,
-                             const fe& y3r, const fe& sxc, const fe& sx2,
-                             const fe& xi, const fe& xsqi,
+                             const fe& y3r, const fe& u, const fe& v,
                              const stark_row_consts& k) {
   fe y0 = fe_canon(y0r), y1 = fe_canon(y1r);
   fe y2 = fe_canon(y2r), y3 = fe_canon(y3r);
@@ -51,8 +93,6 @@ STARK_HD fe stark_eval4_core(const fe& y0r, const fe& y1r, const fe& y2r,
   fe c1 = fe_mul(fe_sub(y1, y3), k.ginv);
   fe sa = fe_add(s02, s13), da = fe_sub(s02, s13);
   fe e = fe_add(d02, c1), f = fe_sub(d02, c1);
-  fe v = fe_mul(sx2, xsqi);
-  fe u = fe_mul(sxc, xi);
   fe efv = fe_add(e, fe_mul(f, v));
   // the two products and sa share one reduction
   fe_acc acc;
@@ -60,66 +100,165 @@ STARK_HD fe stark_eval4_core(const fe& y0r, const fe& y1r, const fe& y2r,
   fe_acc_mul(acc, da, v);
   fe_acc_mul(acc, efv, u);
   fe_acc_add(acc, sa);
-  return fe_mul(fe_reduce(acc), k.inv4);
+  return fe_reduce(acc);
 }
 
-STARK_HD void stark_eval4_one(long long i, const uint32_t* ys_words,
-                              const uint32_t* sx, const uint32_t* x1i,
-                              const uint32_t* x1sqi,
-                              const stark_row_consts& k, long long group,
-                              uint32_t* out) {
-  const uint32_t* y = ys_words + i * 32;
-  long long p = i / group;  // the (proof, level) this row group belongs to
-  fe sxc, sx2;
-  stark_eval4_special_x(fe_from_limbs16(sx + p * 16), sxc, sx2);
-  fe r = stark_eval4_core(fe_from_be_words(y), fe_from_be_words(y + 8),
-                          fe_from_be_words(y + 16), fe_from_be_words(y + 24),
-                          sxc, sx2, fe_from_limbs16(x1i + i * 16),
-                          fe_from_limbs16(x1sqi + i * 16), k);
-  fe_to_be_words(r, out + i * 8);
+// 4 a mod p, canonical, for a canonical a: 4 a = lo + 2^256 h with h < 4,
+// and 2^256 = C (mod p).
+STARK_HD fe fe_times4(const fe& a) {
+  fe r, u;
+  const uint32_t h = a.v[7] >> 30;
+  uint64_t t = (uint64_t)(a.v[0] << 2) + (uint64_t)h * FE_C0;
+  r.v[0] = (uint32_t)t;
+  t = (uint64_t)((a.v[1] << 2) | (a.v[0] >> 30)) + (uint64_t)h * FE_C1 +
+      (t >> 32);
+  r.v[1] = (uint32_t)t;
+#pragma unroll
+  for (int j = 2; j < 8; ++j) {
+    t = (uint64_t)((a.v[j] << 2) | (a.v[j - 1] >> 30)) + (t >> 32);
+    r.v[j] = (uint32_t)t;
+  }
+  // a carry out of bit 255 leaves r below 2^43: 2^256 = C once more
+  fe_add_c(r, u);
+  return fe_canon((uint32_t)(t >> 32) ? u : r);
+}
+
+// The raw committed value c equals P(special_x), given 4 P canonical: c is
+// canonical (c + C does not reach 2^256) and 4 c = 4 P.
+STARK_HD bool stark_fri_holds(const fe& c, const fe& p4) {
+  fe u;
+  return !fe_add_c(c, u) && fe_eq(fe_times4(c), p4);
+}
+
+// Where row group i's operands lie.
+struct stark_row_at {
+  const uint32_t* rows;  // its four poly rows
+  const uint32_t* col;   // its committed value
+  const uint32_t* sx;    // special_x, the previous level's root
+  uint32_t e1;           // y * 4^l, 32-bit
+};
+
+STARK_HD stark_row_at stark_fri_locate(const stark_fri_rows_args& g,
+                                       long long i) {
+  // n < 2^31 (checked by the entry point): 32-bit divisions
+  const uint32_t pl = (uint32_t)i / (uint32_t)g.q;  // (proof, level)
+  const uint32_t kq = (uint32_t)i - pl * (uint32_t)g.q;
+  const uint32_t pr = pl / (uint32_t)g.levels;
+  const uint32_t l = pl - pr * (uint32_t)g.levels;
+  const long long at = (long long)l * g.q + kq;
+  stark_row_at r;
+  r.rows = g.poly + pr * g.poly_stride + at * 32;
+  r.col = g.col + pr * g.col_stride + at * 8;
+  r.sx = l == 0 ? g.lroot + pr * g.lroot_stride
+                : g.root2 + pr * g.root2_stride + (l - 1) * 8;
+  // levels <= 16 (checked by the entry point): the shift stays below 32
+  r.e1 = (uint32_t)g.ys[i] << (2 * l);
+  return r;
+}
+
+STARK_HD fe stark_fri_gather(const stark_fri_rows_args& g, uint32_t idx) {
+  const unsigned long long mask = (unsigned long long)g.rows - 1;
+  return fe_from_le_words(g.g2 + (idx & mask) * 8);
+}
+
+// Row group i from its canonical special_x sxc (and, unless U2, its square).
+template <bool U2>
+STARK_HD void stark_fri_row(const stark_fri_rows_args& g, long long i,
+                            const stark_row_at& at, const fe& sxc,
+                            const fe& sx2) {
+  const fe u = fe_mul(sxc, stark_fri_gather(g, 0u - at.e1));
+  const fe v = U2 ? fe_mul(u, u)
+                  : fe_mul(sx2, stark_fri_gather(g, 0u - 2u * at.e1));
+  const fe p4 = stark_eval4_core(
+      fe_from_be_words(at.rows), fe_from_be_words(at.rows + 8),
+      fe_from_be_words(at.rows + 16), fe_from_be_words(at.rows + 24), u, v,
+      g.k);
+  g.ok[i] = stark_fri_holds(fe_from_be_words(at.col), p4);
+  if (g.lhs) fe_to_be_words(fe_mul(p4, g.k.inv4), g.lhs + i * 8);
 }
 
 #if defined(__CUDACC__)
-__global__ void __launch_bounds__(STARK_BLOCK)
-stark_eval4_kernel(const uint32_t* __restrict__ ys_words,
-                   const uint32_t* __restrict__ sx,
-                   const uint32_t* __restrict__ x1i,
-                   const uint32_t* __restrict__ x1sqi, stark_row_consts k,
-                   long long group, uint32_t* __restrict__ out, long long n) {
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) stark_eval4_one(i, ys_words, sx, x1i, x1sqi, k, group, out);
+template <int FORM>
+__global__ void __launch_bounds__(STARK_FRI_BLOCK,
+                                  FORM == STARK_FRI_U2_ONE_WAVE ? 5 : 1)
+stark_fri_rows_kernel(const __grid_constant__ stark_fri_rows_args g) {
+  const long long i0 = (long long)blockIdx.x * STARK_FRI_BLOCK;
+  const long long i = i0 + threadIdx.x;
+  if constexpr (FORM == STARK_FRI_SHARED) {
+    // the block's (proof, level)s: thread t takes the t-th one's special_x
+    __shared__ fe s_sxc[STARK_FRI_BLOCK], s_sx2[STARK_FRI_BLOCK];
+    const long long pl0 = i0 / g.q;
+    const long long last = (i0 + STARK_FRI_BLOCK < g.n ? i0 + STARK_FRI_BLOCK
+                                                       : g.n) - 1;
+    if (threadIdx.x <= last / g.q - pl0) {
+      const stark_row_at at = stark_fri_locate(g, (pl0 + threadIdx.x) * g.q);
+      const fe sxc = fe_canon(fe_from_be_words(at.sx));
+      s_sxc[threadIdx.x] = sxc;
+      s_sx2[threadIdx.x] = fe_mul(sxc, sxc);
+    }
+    __syncthreads();
+    if (i < g.n) {
+      const long long t = i / g.q - pl0;
+      stark_fri_row<false>(g, i, stark_fri_locate(g, i), s_sxc[t], s_sx2[t]);
+    }
+  } else {
+    if (i >= g.n) return;
+    const stark_row_at at = stark_fri_locate(g, i);
+    const fe sxc = fe_canon(fe_from_be_words(at.sx));
+    if constexpr (FORM == STARK_FRI_U2 || FORM == STARK_FRI_U2_ONE_WAVE)
+      stark_fri_row<true>(g, i, at, sxc, sxc);
+    else
+      stark_fri_row<false>(g, i, at, sxc, fe_mul(sxc, sxc));
+  }
 }
 #endif
 
-// ys_words [n, 4, 8] raw BE word rows; sx [n / group, 16] RAW 16-bit limbs
-// (one per `group` consecutive rows); x1i, x1sqi [n, 16] canonical limbs; ginv8, inv4_8: HOST pointers to 8 little-endian 32-bit
-// limbs each; out [n, 8] BE words.  Returns cudaGetLastError().
-extern "C" int stark_eval4_rows(const void* ys_words, const void* sx,
-                                const void* x1i, const void* x1sqi,
-                                const uint32_t* ginv8,
-                                const uint32_t* inv4_8, long long group,
-                                void* out, long long n, void* stream) {
-  stark_row_consts k;
-  for (int j = 0; j < 8; ++j) {
-    k.ginv.v[j] = ginv8[j];
-    k.inv4.v[j] = inv4_8[j];
-  }
-  const uint32_t* y = static_cast<const uint32_t*>(ys_words);
-  const uint32_t* a = static_cast<const uint32_t*>(sx);
-  const uint32_t* c = static_cast<const uint32_t*>(x1i);
-  const uint32_t* d = static_cast<const uint32_t*>(x1sqi);
-  uint32_t* o = static_cast<uint32_t*>(out);
-  if (group <= 0) return 1;
-  if (n <= 0) return 0;
+// Kernel C over args->n row groups.  Returns 1 (cudaErrorInvalidValue)
+// without writing anything for a bad argument, else cudaGetLastError().
+extern "C" int stark_fri_rows(const void* args, void* stream) {
+  const stark_fri_rows_args& g =
+      *static_cast<const stark_fri_rows_args*>(args);
+  if (g.q <= 0 || g.levels <= 0 || g.levels > 16 || g.n < 0 ||
+      g.n > 0x7FFFFFFFLL || g.n % (g.q * g.levels) != 0 ||
+      !stark_pow2(g.rows) || g.rows > (1LL << 32) || g.form < 0 ||
+      g.form > STARK_FRI_U2_ONE_WAVE)
+    return 1;
+  if (g.n == 0) return 0;
+  if (!stark_aligned16(g.poly, g.poly_stride) ||
+      !stark_aligned16(g.col, g.col_stride) ||
+      !stark_aligned16(g.lroot, g.lroot_stride) ||
+      !stark_aligned16(g.root2, g.root2_stride) ||
+      !stark_aligned16(g.g2, 0) || !stark_aligned16(g.lhs, 0) ||
+      g.poly == nullptr || g.col == nullptr || g.lroot == nullptr ||
+      g.root2 == nullptr || g.g2 == nullptr || g.ys == nullptr ||
+      g.ok == nullptr)
+    return 1;
 #if defined(__CUDACC__)
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  unsigned grid = (unsigned)((n + STARK_BLOCK - 1) / STARK_BLOCK);
-  stark_eval4_kernel<<<grid, STARK_BLOCK, 0, st>>>(y, a, c, d, k, group, o, n);
+  const unsigned grid =
+      (unsigned)((g.n + STARK_FRI_BLOCK - 1) / STARK_FRI_BLOCK);
+  if (g.form == STARK_FRI_U2)
+    stark_fri_rows_kernel<STARK_FRI_U2><<<grid, STARK_FRI_BLOCK, 0, st>>>(g);
+  else if (g.form == STARK_FRI_SQUARE)
+    stark_fri_rows_kernel<STARK_FRI_SQUARE>
+        <<<grid, STARK_FRI_BLOCK, 0, st>>>(g);
+  else if (g.form == STARK_FRI_SHARED)
+    stark_fri_rows_kernel<STARK_FRI_SHARED>
+        <<<grid, STARK_FRI_BLOCK, 0, st>>>(g);
+  else
+    stark_fri_rows_kernel<STARK_FRI_U2_ONE_WAVE>
+        <<<grid, STARK_FRI_BLOCK, 0, st>>>(g);
   return (int)cudaGetLastError();
 #else
   (void)stream;
-  for (long long i = 0; i < n; ++i)
-    stark_eval4_one(i, y, a, c, d, k, group, o);
+  for (long long i = 0; i < g.n; ++i) {
+    const stark_row_at at = stark_fri_locate(g, i);
+    const fe sxc = fe_canon(fe_from_be_words(at.sx));
+    if (g.form == STARK_FRI_U2 || g.form == STARK_FRI_U2_ONE_WAVE)
+      stark_fri_row<true>(g, i, at, sxc, sxc);
+    else
+      stark_fri_row<false>(g, i, at, sxc, fe_mul(sxc, sxc));
+  }
   return 0;
 #endif
 }

@@ -6,10 +6,11 @@
 // products, reductions, adds and compares alone: none of the limb or byte
 // packing, loads and stores of the kernels' layouts.  Never launched.
 //
-//   probe_eval4_row        kernel C, one row group, given special_x canonical
-//                          and squared;
+//   probe_eval4_row        kernel C, one row group, given special_x
+//                          canonical: u = sx x1^-1, v = u^2, 4 P(sx) and
+//                          the compare with the committed value;
 //   probe_eval4_special_x  kernel C, one (proof, level): special_x's
-//                          canonicalization and square, once;
+//                          canonicalization, once;
 //   probe_spot3 / 2        kernel D, one position (its four parts);
 //   probe_mul              kernel E, one element.
 #include "../field_mul.cu"
@@ -23,17 +24,15 @@ extern "C" __global__ void probe_copy(const fe* in, fe* out) {
 }
 
 extern "C" __global__ void probe_eval4_row(const fe* in, stark_row_consts k,
-                                           fe* out) {
+                                           uint32_t* out) {
   const fe* v = in + threadIdx.x * PROBE_STRIDE;
-  out[threadIdx.x] =
-      stark_eval4_core(v[0], v[1], v[2], v[3], v[4], v[5], v[6], v[7], k);
+  const fe u = fe_mul(v[4], v[5]);
+  out[threadIdx.x] = stark_fri_holds(
+      v[6], stark_eval4_core(v[0], v[1], v[2], v[3], u, fe_mul(u, u), k));
 }
 
 extern "C" __global__ void probe_eval4_special_x(const fe* in, fe* out) {
-  fe sxc, sx2;
-  stark_eval4_special_x(in[threadIdx.x * PROBE_STRIDE], sxc, sx2);
-  out[2 * threadIdx.x] = sxc;
-  out[2 * threadIdx.x + 1] = sx2;
+  out[threadIdx.x] = fe_canon(in[threadIdx.x * PROBE_STRIDE]);
 }
 
 // Kernel D, one position as the sum of its four parts (csrc/spot_checks.cu),

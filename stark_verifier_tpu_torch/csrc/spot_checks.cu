@@ -250,13 +250,6 @@ stark_spot_kernel(const __grid_constant__ stark_spot_args g) {
 }
 #endif
 
-static bool stark_spot_aligned(const void* p, long long stride) {
-  return (reinterpret_cast<unsigned long long>(p) & 15u) == 0 &&
-         stride % 4 == 0;
-}
-
-static bool stark_pow2(long long x) { return x > 0 && (x & (x - 1)) == 0; }
-
 // Kernel D over args->n positions, `group` a proof; power 2 or 3.  Returns
 // 1 (cudaErrorInvalidValue) without writing anything for a bad argument,
 // else cudaGetLastError().
@@ -268,14 +261,14 @@ extern "C" int stark_spot_checks(const void* args, void* stream) {
     return 1;
   if (g.n == 0) return 0;
   if (!g.k_pos && !stark_pow2(g.k_rows)) return 1;
-  if (!stark_spot_aligned(g.main, g.main_stride) ||
-      !stark_spot_aligned(g.lin, g.lin_stride) ||
-      !stark_spot_aligned(g.kh, g.kh_stride) ||
-      !stark_spot_aligned(g.ic1, g.ic1_stride) ||
-      !stark_spot_aligned(g.ic0, g.ic0_stride) ||
-      !stark_spot_aligned(g.g2, 0) || !stark_spot_aligned(g.z, 0) ||
-      !stark_spot_aligned(g.z2, 0) ||
-      !stark_spot_aligned(g.k_pos ? g.k_pos : g.k, 0) || g.pos == nullptr ||
+  if (!stark_aligned16(g.main, g.main_stride) ||
+      !stark_aligned16(g.lin, g.lin_stride) ||
+      !stark_aligned16(g.kh, g.kh_stride) ||
+      !stark_aligned16(g.ic1, g.ic1_stride) ||
+      !stark_aligned16(g.ic0, g.ic0_stride) ||
+      !stark_aligned16(g.g2, 0) || !stark_aligned16(g.z, 0) ||
+      !stark_aligned16(g.z2, 0) ||
+      !stark_aligned16(g.k_pos ? g.k_pos : g.k, 0) || g.pos == nullptr ||
       g.out == nullptr)
     return 1;
 #if defined(__CUDACC__)

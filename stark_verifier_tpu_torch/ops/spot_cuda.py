@@ -98,24 +98,6 @@ def spot_checks_plain(main_value, lincomb_value, positions, kh, ic1, ic0,
                             ic0[..., None, :], power)
 
 
-def _proof_stride(t: torch.Tensor, nlead: int, name: str) -> int:
-    """Word stride between consecutive proofs of `t`, whose first `nlead`
-    dims index the proofs (they must collapse to one stride) and whose
-    other dims are dense."""
-    inner = t.shape[nlead:]
-    dense = 1
-    for size, stride in zip(reversed(inner), reversed(t.stride()[nlead:])):
-        if size > 1 and stride != dense:
-            raise ValueError(f"spot_checks: {name} rows must be dense")
-        dense *= size
-    for d in range(nlead - 1):
-        if t.shape[d] > 1 and t.stride(d) != t.stride(d + 1) * t.shape[d + 1]:
-            raise ValueError(
-                f"spot_checks: {name}'s proof dims do not collapse to one "
-                "stride")
-    return t.stride(nlead - 1) if nlead else 0
-
-
 def _spot_args(main_value, lincomb_value, positions, kh, ic1, ic0,
                tables: SpotTables, k_rows, power: int) -> tuple:
     """(the kernel's SpotArgs, the verdicts [..., n, 3] bool it writes, the
@@ -152,16 +134,17 @@ def _spot_args(main_value, lincomb_value, positions, kh, ic1, ic0,
     positions = positions.contiguous()
     k_rows = None if k_rows is None else k_rows.contiguous()
     ok = torch.empty(lead + (n, 3), dtype=torch.bool, device=dev)
+    strides = [_build.proof_stride(words[name], nlead, f"spot_checks: {name}")
+               for name in ("main_value", "lincomb_value", "kh")]
+    strides += [_build.proof_stride(t, nlead, f"spot_checks: {name}")
+                for name, t in (("ic1", ic1), ("ic0", ic0))]
     args = _build.SpotArgs(
         main_value.data_ptr(), lincomb_value.data_ptr(), positions.data_ptr(),
         kh.data_ptr(), ic1.data_ptr(), ic0.data_ptr(), tables.g2.data_ptr(),
         tables.z.data_ptr(), tables.z2.data_ptr(), tables.k.data_ptr(),
         None if k_rows is None else k_rows.data_ptr(), ok.data_ptr(),
-        _proof_stride(main_value, nlead, "main_value"),
-        _proof_stride(lincomb_value, nlead, "lincomb_value"),
-        _proof_stride(kh, nlead, "kh"), _proof_stride(ic1, nlead, "ic1"),
-        _proof_stride(ic0, nlead, "ic0"), rows, tables.k.shape[0], n,
-        ok.numel() // 3, tables.log_steps, power)
+        *strides, rows, tables.k.shape[0], n, ok.numel() // 3,
+        tables.log_steps, power)
     return args, ok, (positions, k_rows)
 
 

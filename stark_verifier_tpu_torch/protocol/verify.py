@@ -9,7 +9,8 @@ every proof of a batch through the same fixed-shape tensor program:
   * all Merkle branch groups: shared-path walks, or with
     shared_merkle=False every branch on its own to the root (ops/merkle.py,
     the walks themselves in the kernels of ops/merkle_cuda.py)
-  * FRI rows: one kernel over all levels and queries      (ops/fri_cuda.py)
+  * FRI rows: one kernel over all levels and queries, from the proof's
+    rows and roots to a verdict a query                   (ops/fri_cuda.py)
   * 80 constraint spot checks: one kernel                (ops/spot_cuda.py)
   * runtime round constants: an iNTT whose products are the element-wise
     multiply kernel                          (ops/ntt.py, ops/field_cuda.py)
@@ -72,21 +73,26 @@ def _table(tables, name: str, device) -> torch.Tensor:
     return to_tensor(t, device)
 
 
-# the statement tables kernel D gathers from, packed to 8 little-endian
-# words a row: (buffer of a verifier module, StatementTables field)
-_SPOT_TABLES = (("g2_words", "g2_powers"), ("z_words", "z_table"),
-                ("z2_words", "z2_table"), ("k_words", "k_table"))
+# the statement tables kernels C and D gather from, packed to 8
+# little-endian words a row: (buffer of a verifier module, StatementTables
+# field)
+_PACKED_TABLES = (("g2_words", "g2_powers"), ("z_words", "z_table"),
+                  ("z2_words", "z2_table"), ("k_words", "k_table"))
+
+
+def _packed(tables, name: str, device) -> torch.Tensor:
+    """A packed table: the verifier module's buffer when `tables` is one,
+    else packed afresh from the host limb array."""
+    if isinstance(tables, nn.Module):
+        return getattr(tables, name)
+    src = dict(_PACKED_TABLES)[name]
+    return to_tensor(fp.limbs_to_le_words(getattr(tables, src)), device)
 
 
 def _spot_tables(tables, cfg: StarkConfig, device) -> spot_cuda.SpotTables:
-    """The packed tables: the verifier module's buffers when `tables` is
-    one, else packed afresh from the host limb arrays."""
-    if isinstance(tables, nn.Module):
-        rows = [getattr(tables, name) for name, _ in _SPOT_TABLES]
-    else:
-        rows = [to_tensor(fp.limbs_to_le_words(getattr(tables, src)), device)
-                for _, src in _SPOT_TABLES]
-    return spot_cuda.SpotTables(*rows, log_steps=cfg.log_steps)
+    return spot_cuda.SpotTables(
+        *(_packed(tables, name, device) for name, _ in _PACKED_TABLES),
+        log_steps=cfg.log_steps)
 
 
 def _fri_checks(l_root_words, fri, tables, cfg: StarkConfig,
@@ -102,14 +108,11 @@ def _fri_checks(l_root_words, fri, tables, cfg: StarkConfig,
     dev = l_root_words.device
 
     # Level-PARALLEL walk: nothing is sequential across FRI levels -- each
-    # level's seed is its own root2 from the proof and its special_x is the
-    # *previous* level's root, which is just a shifted stack.
+    # level's seed is its own root2 from the proof, and its poly tree's root
+    # (and special_x) is the *previous* level's root, a shifted stack.
     root2 = fri["root2"]                                   # [..., L, 8]
     prev = torch.cat([l_root_words[..., None, :], root2[..., :-1, :]],
                      dim=-2)                               # [..., L, 8]
-    # special_x = raw previous-root bytes as (unreduced) field elements
-    # (main.rs:54)
-    special_x = F.words_be_to_limbs(prev)                  # [..., L, 16]
 
     mod_b = _table(tables, "level_moduli", dev)[:, None]   # [L, 1] = rou_deg/4
     if ys is None:
@@ -155,27 +158,16 @@ def _fri_checks(l_root_words, fri, tables, cfg: StarkConfig,
     # row x-coords are quartic_rou[j] * x1 with x1 = rou_level^y,
     # rou_level = G2^(4^l) (stale quartic roots, main.rs:73-80): x1 is a known
     # power of G2, so the even/odd-split row evaluation's only denominators
-    # x1^-1 / x1^-2 come from the master power table by gather
-    g2t = _table(tables, "g2_powers", dev)                 # [precision, 16]
-    mask = cfg.precision - 1
-    lvl_mult = torch.tensor([4 ** l for l in range(cfg.fri_levels)],
-                            dtype=torch.int64, device=dev)[:, None]  # [L, 1]
-    # int64 index arithmetic: masking with precision-1 (a power of two minus
-    # one) gives what the reference's uint32 wrap-around gives
-    e1 = (ys * lvl_mult) & mask                            # [..., L, q]
-    x1_inv = g2t[(-e1) & mask]
-    x1sq_inv = g2t[(-2 * e1) & mask]                       # [..., L, q, 16]
-
-    # canonical interpolated value compared to the RAW column value
-    # (main.rs:84-86): a non-canonical committed value can never equal a
-    # canonical lhs, exactly like the reference's unreduced BigInt equality.
-    # The row kernel speaks the wire's 8-word BE encoding on both ends, so
-    # the equality runs directly on the proof's word arrays.
-    rows_w = fri["poly_value"].reshape(
-        *fri["poly_value"].shape[:-2], q, 4, 8)            # [..., L, q, 4, 8]
-    lhs_w = fri_cuda.eval4_rows(x1_inv, x1sq_inv, rows_w, special_x,
-                                tables.quartic_ginv, tables.inv4)
-    ok_val = (lhs_w == fri["col_value"]).all(dim=-1).all(dim=-1)
+    # come from the master power table by gather.  The row kernel reads the
+    # proof's poly rows, column values and roots (special_x = the previous
+    # root, raw, main.rs:54) and the packed table itself, and compares its
+    # canonical interpolated value with the RAW column value (main.rs:84-86):
+    # a non-canonical committed value can never equal it, exactly like the
+    # reference's unreduced BigInt equality.
+    ok_val = fri_cuda.fri_rows(
+        fri["poly_value"], fri["col_value"], ys, l_root_words, root2,
+        _packed(tables, "g2_words", dev), tables.quartic_ginv,
+        tables.inv4).all(dim=-1)                           # [..., L]
     ok = (ok_merkle & ok_val).all(dim=-1)
     return ok, root2
 
@@ -370,7 +362,7 @@ class _FamilyVerifier(nn.Module):
 
     The statement tables are registered buffers (g2_powers, z_table,
     z2_table, k_table, points_eval_matrix as int32 limb tensors; the spot
-    kernel's copies of the first four packed to 8 words a row, g2_words,
+    kernels' copies of the first four packed to 8 words a row, g2_words,
     z_words, z2_words, k_words; level_moduli and points_pts as int64), so
     they are copied to the device once and move with .to(); the host
     constants (quartic_ginv, inv4, last_step_position, k_period,
@@ -388,7 +380,7 @@ class _FamilyVerifier(nn.Module):
                      "points_eval_matrix"):
             self.register_buffer(name, to_tensor(getattr(tables, name), "cpu"),
                                  persistent=False)
-        for name, src in _SPOT_TABLES:
+        for name, src in _PACKED_TABLES:
             self.register_buffer(
                 name, to_tensor(fp.limbs_to_le_words(getattr(tables, src)),
                                 "cpu"), persistent=False)

@@ -261,26 +261,118 @@ def _special(rng, n):
     return vals[:n]
 
 
-def test_host_eval4_rows(hostlib):
-    rng = np.random.RandomState(5)
+def _be_words(x):
+    return F.limbs_to_words_be(_limbs([x]))[0]
+
+
+def _fri_operands(rng, b, nl, q, strided=True):
+    """Kernel C's operands on the CPU for b proofs of nl levels and q
+    queries: poly rows read in place with a proof stride wider than their
+    rows (a slice of longer rows, as a chunk of a batch may be), raw words
+    (0xFFFFFFFF and sign-bit words, values >= p), column indices over the
+    32-bit range with 0 and the top on the last level, roots >= p, the
+    packed power table of a small statement; the committed values hold at
+    every even query except a tampered one, and a query whose value is
+    right but not canonical, and constant rows whose committed value is
+    the constant."""
     tables = cached_tables(StarkConfig(log_steps=9))
-    g2t = _i32(tables.g2_powers)
-    b, g = 3, 8
-    e1 = torch.from_numpy(rng.randint(0, 4096, (b, g)).astype(np.int64))
-    x1_inv = g2t[(-e1) & 4095].contiguous()
-    x1sq_inv = g2t[(-2 * e1) & 4095].contiguous()
-    ys = F.limbs_to_words_be(
-        _limbs(_special(rng, b * g * 4)).reshape(b, g, 4, 16)).contiguous()
-    sx = _limbs([2**256 - 1, P + 5, int.from_bytes(rng.bytes(32), "big")])
-    want = fri_cuda.eval4_rows_plain(x1_inv, x1sq_inv, ys, sx,
-                                     tables.quartic_ginv, tables.inv4)
-    out = torch.empty((b, g, 8), dtype=torch.int32)
-    rc = hostlib.stark_eval4_rows(
-        ys.data_ptr(), sx.data_ptr(), x1_inv.data_ptr(),
-        x1sq_inv.data_ptr(), fri_cuda._limbs_to_u32x8(tables.quartic_ginv),
-        fri_cuda._limbs_to_u32x8(tables.inv4), g, out.data_ptr(), b * g, None)
+    pad = 8 if strided else 0
+    poly = _words(rng, (b, nl * 4 * q * 8 + pad))[:, pad:].view(
+        b, nl, 4 * q, 8)
+    col = _words(rng, (b, nl, q, 8))
+    ys = torch.from_numpy(
+        rng.randint(0, 2**32, (b, nl, q), dtype=np.uint64).astype(np.int64))
+    ys[0, -1, :2] = torch.tensor([0, 2**32 - 1])
+    lroot, root2 = _words(rng, (b, 8)), _words(rng, (b, nl, 8))
+    lroot[0] = -1                                   # 2^256 - 1
+    root2[-1, 0] = _be_words(P)
+    poly[-1, 2, 0:4] = torch.stack([_be_words(v) for v in (5, P + 5, 5, 5)])
+    poly[-1, 2, 12:16] = _be_words(P + 5)
+    # constant rows c at even queries, where the committed value is c:
+    # 4 c carries past 2^256 once it is folded (the first two), or not
+    for (lv, k), c in zip(((1, 0), (1, 2), (0, 2)),
+                          (2**255 - 1, 3 * 2**254 - 1, P - 1)):
+        poly[-1, lv, 4 * k:4 * k + 4] = _be_words(c)
+    g2w = _i32(fp.limbs_to_le_words(tables.g2_powers))
+    ops = [poly, col, ys, lroot, root2, g2w, tables.quartic_ginv, tables.inv4]
+    _, lhs = fri_cuda.fri_rows_plain(*ops)
+    col[:, :, 0::2] = lhs[:, :, 0::2]
+    col[0, 1, 2, 7] ^= 1
+    col[-1, 2, 3] = _be_words(P + 5)
+    return ops
+
+
+def _host_fri(hostlib, ops, want_lhs, form):
+    args, ok, lhs, keep = fri_cuda._fri_args(*ops, want_lhs)
+    args.form = form
+    ok.view(torch.uint8).fill_(9)
+    rc = hostlib.stark_fri_rows(args, None)
+    assert ok.view(torch.uint8).max() <= 1          # every byte written
+    return rc, ok, lhs
+
+
+@pytest.mark.parametrize("form", [0, 1, 2, 3])
+def test_host_eval4_rows(hostlib, form):
+    """Kernel C's body against its plain version, poly rows read with their
+    proof stride: the ok bytes and the evaluations' words, each way of
+    forming v."""
+    rng = np.random.RandomState(5)
+    ops = _fri_operands(rng, 3, 5, 6)
+    want_ok, want_lhs = fri_cuda.fri_rows_plain(*ops)
+    assert want_ok[:, :, 0::2].sum() == 3 * 5 * 3 - 1 and want_ok[-1, 2, 0]
+    assert not want_ok[:, :, 1::2].any()
+    assert want_lhs[-1, 1, 2].tolist() == _be_words(3 * 2**254 - 1).tolist()
+    args, *_ = fri_cuda._fri_args(*ops, True)
+    assert (args.poly_stride, args.col_stride, args.root2_stride) == (
+        5 * 24 * 8 + 8, 5 * 6 * 8, 40)
+    rc, ok, lhs = _host_fri(hostlib, ops, True, form)
     assert rc == 0
-    np.testing.assert_array_equal(out.numpy(), want.numpy())
+    np.testing.assert_array_equal(ok.numpy(), want_ok.numpy())
+    np.testing.assert_array_equal(lhs.numpy(), want_lhs.numpy())
+
+
+def test_host_fri_rows_one_proof_no_words(hostlib):
+    """One proof with no batch axis (proof strides 0), dense rows, and no
+    evaluation words asked for: the ok bytes alone."""
+    rng = np.random.RandomState(6)
+    ops = [t[1] if isinstance(t, torch.Tensor) and i < 5 else t
+           for i, t in enumerate(_fri_operands(rng, 2, 3, 4, strided=False))]
+    want_ok, _ = fri_cuda.fri_rows_plain(*ops)
+    assert want_ok.shape == (3, 4) and want_ok[2, 0] and not want_ok[2, 3]
+    rc, ok, lhs = _host_fri(hostlib, ops, False, fri_cuda.FORM)
+    assert rc == 0 and lhs is None
+    np.testing.assert_array_equal(ok.numpy(), want_ok.numpy())
+
+
+@pytest.mark.parametrize("fault", ["queries", "levels", "many_levels",
+                                   "no_table", "rows", "poly_alignment",
+                                   "count", "form"])
+def test_host_fri_rows_rejects_bad_arguments(hostlib, fault):
+    """An argument kernel C cannot take: the entry point returns 1 and
+    writes nothing."""
+    rng = np.random.RandomState(2)
+    ops = _fri_operands(rng, 2, 3, 4)
+    args, ok, lhs, keep = fri_cuda._fri_args(*ops, True)
+    ok.view(torch.uint8).fill_(9)
+    lhs.fill_(7)
+    if fault == "queries":
+        args.q = 0
+    elif fault == "levels":
+        args.levels = -3
+    elif fault == "many_levels":
+        args.levels, args.n = 17, 17 * 4
+    elif fault == "no_table":
+        args.g2 = None
+    elif fault == "rows":
+        args.rows = 24
+    elif fault == "poly_alignment":
+        args.poly += 4
+    elif fault == "count":
+        args.n = 23                                  # not whole proofs
+    else:
+        args.form = 4
+    assert hostlib.stark_fri_rows(args, None) == 1
+    assert (ok.view(torch.uint8) == 9).all() and (lhs == 7).all()
 
 
 def _spot_operands(rng, b, g, power, per_position_k=False):

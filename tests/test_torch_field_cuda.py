@@ -156,9 +156,15 @@ def test_plain_versions_of_the_other_kernels_do_not_reach_the_dispatch(
                                  limbs(2, 3, 4), limbs(2), ginv, inv4)
     assert out.shape == (2, 3, 16)
     words = F.limbs_to_words_be(limbs(2, 3, 4))
-    assert fri_cuda.eval4_rows_plain(
+    assert fri_cuda.eval4_rows(
         F.canon(limbs(2, 3)), F.canon(limbs(2, 3)), words, limbs(2),
         ginv, inv4).shape == (2, 3, 8)
+    ok, lhs = fri_cuda.fri_rows(
+        F.limbs_to_words_be(limbs(2, 5, 12)), F.limbs_to_words_be(
+            limbs(2, 5, 3)), torch.arange(30).reshape(2, 5, 3),
+        F.limbs_to_words_be(limbs(2)), F.limbs_to_words_be(limbs(2, 5)),
+        F.limbs_to_words_le(F.canon(limbs(64))), ginv, inv4, lhs=True)
+    assert ok.shape == (2, 5, 3) and lhs.shape == (2, 5, 3, 8)
     for power in (2, 3):
         ok = spot_cuda.spot_limbs_plain(
             limbs(2, 3, 5), F.canon(limbs(2, 3, 5)), limbs(2, 1, 4),

@@ -1,7 +1,7 @@
 """Plain versions of the FRI row kernel and the spot-check kernel against the
-JAX package's Pallas kernels in interpret mode and against the oracle (the
-spot checks on the proof's words and packed tables, the JAX function on the
-limbs and gathers of the same values).  Tolerance 0."""
+JAX package's Pallas kernels in interpret mode and against the oracle (both
+on the proof's words and packed tables, the JAX functions on the limbs and
+gathers of the same values).  Tolerance 0."""
 
 import random
 
@@ -102,6 +102,88 @@ def test_eval4_rows_batched_levels():
         ginv, inv4, interpret=True))
     got = fri_cuda.eval4_rows(_t(xi), _t(xsq), _t(ys_w), _t(sx), ginv, inv4)
     np.testing.assert_array_equal(_n(got), want)
+
+
+def _be_words(x):
+    """An integer < 2^256 -> its 8 big-endian wire words (numpy uint32)."""
+    return _be(fp.int_to_limbs(x))
+
+
+def _fri_case(rng, tables, b, nl, q):
+    """Kernel C's operands for b proofs of nl levels and q queries, as the
+    proof holds them: raw poly rows and column values (0xFFFFFFFF words,
+    values >= p), column indices over the whole 32-bit range with 0 and the
+    top of the range on the last level, roots >= p."""
+    poly = _rand_words(rng, (b, nl, 4 * q, 8))
+    col = _rand_words(rng, (b, nl, q, 8))
+    ys = rng.randint(0, 2**32, (b, nl, q), dtype=np.uint64).astype(np.int64)
+    ys[0, -1, :3] = [0, 2**32 - 1, tables.level_moduli[-1] - 1]
+    lroot = _rand_words(rng, (b, 8))
+    root2 = _rand_words(rng, (b, nl, 8))
+    lroot[0] = 0xFFFFFFFF                        # 2^256 - 1
+    root2[-1, 0] = _be_words(P)
+    root2[0, 1] = _be_words(P + 3)
+    # query 0 of proof b-1, level 2: rows 5, 5 + p, 5, 5 (the constant 5);
+    # query 3 the same constant, every row encoded as 5 + p
+    poly[-1, 2, 0:4] = [_be_words(v) for v in (5, P + 5, 5, 5)]
+    poly[-1, 2, 12:16] = _be_words(P + 5)
+    return poly, col, ys, lroot, root2
+
+
+def _jax_fri_rows(tables, poly, col, ys, lroot, root2):
+    """The JAX verifier's own pieces (stark_verifier_tpu/protocol/verify.py,
+    _fri_checks): special_x's limbs, the uint32 index arithmetic, jnp.take
+    of the limb power table, the Pallas row kernel, the compare."""
+    nl, q = ys.shape[-2:]
+    g2t = jnp.asarray(tables.g2_powers)
+    mask = jnp.uint32(tables.g2_powers.shape[0] - 1)
+    lvl_mult = jnp.asarray(np.array([4 ** l for l in range(nl)],
+                                    dtype=np.uint32))[:, None]
+    e1 = (jnp.asarray(ys.astype(np.uint32)) * lvl_mult) & mask
+    x1_inv = jnp.take(g2t, (jnp.uint32(0) - e1) & mask, axis=0)
+    x1sq_inv = jnp.take(g2t, (jnp.uint32(0) - jnp.uint32(2) * e1) & mask,
+                        axis=0)
+    prev = np.concatenate([lroot[:, None], root2[:, :-1]], axis=1)
+    special_x = JF.words_be_to_limbs(jnp.asarray(prev))
+    rows_w = jnp.asarray(poly).reshape(*poly.shape[:-2], q, 4, 8)
+    lhs_w = fri_pallas.eval4_rows(
+        x1_inv, x1sq_inv, rows_w, special_x, np.asarray(tables.quartic_ginv),
+        np.asarray(tables.inv4), interpret=True)
+    return (np.asarray(jnp.all(lhs_w == jnp.asarray(col), axis=-1)),
+            np.asarray(lhs_w))
+
+
+@pytest.mark.parametrize("log_steps", [13, 9])
+def test_fri_rows_plain(log_steps):
+    """C's plain version on the proof's words, the indices, the roots and
+    the packed power table against the JAX verifier's gathers, Pallas row
+    kernel and compare, at the default statement's table (2^16 rows) and a
+    small one (2^12).  The committed values hold at every even query; a
+    tampered word and a non-canonical encoding of the right value reject."""
+    tables = jtables(JCfg(log_steps=log_steps))
+    b, nl, q = 2, 5, 4
+    rng = np.random.RandomState(40 + log_steps)
+    poly, col, ys, lroot, root2 = _fri_case(rng, tables, b, nl, q)
+    _, lhs = _jax_fri_rows(tables, poly, col, ys, lroot, root2)
+    col[:, :, 0::2] = lhs[:, :, 0::2]
+    col[0, 1, 2, 7] ^= 1                         # a tampered word
+    col[-1, 2, 3] = _be_words(P + 5)             # 5, not canonical
+    want_ok, want_lhs = _jax_fri_rows(tables, poly, col, ys, lroot, root2)
+    expect = np.zeros((b, nl, q), dtype=bool)
+    expect[:, :, 0::2] = True
+    expect[0, 1, 2] = False
+    assert np.array_equal(want_ok, expect)
+    assert fp.limbs_to_int(_n(F.words_be_to_limbs(_t(want_lhs[-1, 2, 3])))) == 5
+    g2w = _t(fp.limbs_to_le_words(np.asarray(tables.g2_powers)))
+    ok, got_lhs = fri_cuda.fri_rows(
+        _t(poly), _t(col), torch.from_numpy(ys), _t(lroot), _t(root2), g2w,
+        tables.quartic_ginv, tables.inv4, lhs=True)
+    assert ok.dtype == torch.bool and ok.shape == (b, nl, q)
+    np.testing.assert_array_equal(ok.numpy(), want_ok)
+    np.testing.assert_array_equal(_n(got_lhs), want_lhs)
+    assert torch.equal(fri_cuda.fri_rows(
+        _t(poly), _t(col), torch.from_numpy(ys), _t(lroot), _t(root2), g2w,
+        tables.quartic_ginv, tables.inv4), ok)
 
 
 def _rand_limbs(rng, shape, canonical=False):
