@@ -25,9 +25,7 @@ the CPU):
                  operands in C, D and E), with the wrapper's time (CUDA events
                  around Python calls) and its device time (calls replayed
                  from a CUDA graph) beside the least time the card could
-                 take; then C's other forms and C, D and E under the
-                 multiply on PTX carry chains, each in turns with the
-                 kernels as built;
+                 take; C's device time also at fewer proofs;
   4. golden   -- a full-size MiMC-STARK proof (2^13 steps) is generated with
                  the pure-Python prover and accepted by the pure-Python oracle;
   5. main path -- 1,024 proofs (12 of them tampered, one per protocol site) in
@@ -56,7 +54,6 @@ just after.  The last line printed is {"ok": true, "device": {...}}; the line
 before it holds one JSON record per kernel.
 """
 
-import contextlib
 import json
 import os
 import statistics
@@ -134,7 +131,6 @@ SASS_COMPRESS = {"walk_leaf_levels": "stark_walk_groups_kernelILi0",
                  "walk_quads": "stark_walk_groups_kernelILi2"}
 SASS_PROBES = ("probe_eval4_row", "probe_eval4_special_x", "probe_spot3",
                "probe_spot2", "probe_mul")
-PTX_MUL = "STARK_PTX_MUL"     # the multiply on PTX carry chains, a variant
 
 # operands that the 256-bit multiply must carry right: 0, 1, p - 1, p,
 # p + 1, 2^256 - 1, and limb patterns whose products carry through every
@@ -271,26 +267,16 @@ def start_indices(lead, depth, gen):
 # phase 3: each kernel against its plain version
 # ---------------------------------------------------------------------------
 
-def measure(label, call, plain, got, want, moved, work, reps, full=None):
+def measure(label, call, plain, got, want, moved, work, reps):
     """A kernel case: its results against the plain version's, the wrapper's
     and the device's time of `call`, the plain version's, and the bound for
-    `work` (as bound() takes it) moving `moved` bytes.  The record keeps,
-    under "_again", `call` and a recheck of `full` (the call that returns
-    what `got` holds; `call` itself by default) against `want`, for the
-    multiply trial."""
+    `work` (as bound() takes it) moving `moved` bytes."""
     err = max(max_abs_err(g, w) for g, w in zip(got, want))
     ms, dms = time_ms(call, reps), device_ms(call)
     plain_ms = time_ms(plain, 2)
     bms, by, parts = bound(moved, work)
-
-    def recheck():
-        out = (full or call)()
-        out = list(out) if isinstance(out, (tuple, list)) else [out]
-        return max(max_abs_err(g, w) for g, w in zip(out, want))
-
     return {"shape": label, "max_abs_err": err, "ms": ms, "device_ms": dms,
-            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, **parts,
-            "_again": (call, recheck)}
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, **parts}
 
 
 def walk_inputs(gen, b, n, vw, depth, levels):
@@ -425,12 +411,19 @@ def check_rows(gen, ops, cfg, tables, g2_words, b, reps):
     # what a row group needs: its four poly rows, its committed value, its
     # index, its ok byte; a (proof, level) its special_x; the table once
     moved = b * nl * q * (128 + 32 + 8 + 1) + b * nl * 32 + nbytes(g2_words)
-    return measure(f"B={b} levels={nl} queries={q}",
-                   lambda: fri_cuda.fri_rows(*args),
-                   lambda: fri_cuda.fri_rows_plain(*args), got, want, moved,
-                   [(b * nl * q, ops["probe_eval4_row"]),
-                    (b * nl, ops["probe_eval4_special_x"])], reps,
-                   full=lambda: fri_cuda.fri_rows(*args, lhs=True))
+    rec = measure(f"B={b} levels={nl} queries={q}",
+                  lambda: fri_cuda.fri_rows(*args),
+                  lambda: fri_cuda.fri_rows_plain(*args), got, want, moved,
+                  [(b * nl * q, ops["probe_eval4_row"]),
+                   (b * nl, ops["probe_eval4_special_x"])], reps)
+    # fewer proofs: 422 fill the card once at 4 blocks of 160 an SM (about
+    # 95 registers a thread), 424 start a second wave
+    rec["device_ms_at_proofs"] = {
+        n: device_ms(lambda: fri_cuda.fri_rows(
+            *(t[:n] for t in args[:5]), *args[5:]))
+        for n in (128, 256, 416, 424, b)}
+    log(f"kernel fri_rows: device ms by proofs {rec['device_ms_at_proofs']}")
+    return rec
 
 
 def spot_inputs(gen, cfg, tabs, b, power, k_rows):
@@ -669,18 +662,12 @@ def sass_phase():
     for name in rep:
         if any(k in name for k in ("fri_rows", "spot_kernel", "mul_mod")):
             log(f"sass {name}: a thread's path {json.dumps(rep[name]['path'])}")
-    try:
-        chains = sass.work(defines=(PTX_MUL,))
-    except (OSError, subprocess.SubprocessError) as e:
-        fail(f"the probes with the carry-chain multiply could not be built "
-             f"or read: {e} {getattr(e, 'stderr', '') or ''}")
     for key in SASS_PROBES:
-        if key not in work or key not in chains:
+        if key not in work:
             fail(f"sass: probe {key} not found in csrc/probes/work.cu's SASS")
         ops[key] = (work[key]["arith"], work[key]["alu_only"])
         log(f"sass {key}: {json.dumps(work[key])}; (all, ALU-only) "
-            f"{ops[key]}; with the carry-chain multiply "
-            f"{json.dumps(chains[key])}")
+            f"{ops[key]}")
     return ops
 
 
@@ -792,60 +779,6 @@ def kernel_phase(cfg, tables, ops):
         record("walk_branches", src + "merkle_walk.cu",
                tpu + "merkle_pallas.py:117", f_cases),
     ]
-
-
-def case_of(kernels, name, at):
-    return next(k for k in kernels if k["name"] == name)["cases"][at]
-
-
-def in_turns(label, case, setups):
-    """Device ms of `case`'s call under each of `setups` ((name, context
-    manager factory), ...), in the turns a, b, b, a, ..., each pass first
-    held bit-exact against the plain version again."""
-    call, recheck = case["_again"]
-    times = {name: [] for name, _ in setups}
-    for name, ctx in list(setups) + list(reversed(setups)):
-        with ctx():
-            err = recheck()
-            if err:
-                fail(f"{label} under {name}: max_abs_err {err}")
-            times[name].append(device_ms(call))
-    log(f"{label} [{case['shape']}], device ms in turns: " + "; ".join(
-        f"{name} {', '.join(f'{t:.4f}' for t in ts)}"
-        for name, ts in times.items()))
-    return times
-
-
-@contextlib.contextmanager
-def row_form(form):
-    saved, fri_cuda.FORM = fri_cuda.FORM, form
-    try:
-        yield
-    finally:
-        fri_cuda.FORM = saved
-
-
-def trials(kernels):
-    """Kernel C's ways of forming v, then C, D and E under the portable
-    multiply and the one on PTX carry chains, in turns."""
-    out = {"row_forms": in_turns(
-        "kernel C's forms of v", case_of(kernels, "fri_rows", 0),
-        [("u^2", lambda: row_form(0)),
-         ("u^2 in 80 registers", lambda: row_form(3)),
-         ("square", lambda: row_form(1)), ("shared", lambda: row_form(2))])}
-    cores = [("portable", contextlib.nullcontext),
-             ("carry chains", lambda: _build.variant(PTX_MUL))]
-    for name, at in (("fri_rows", 0), ("spot_checks", 0), ("mul_mod", -1)):
-        out[name] = in_turns(f"multiply trial: {name}",
-                             case_of(kernels, name, at), cores)
-    return out
-
-
-def public(kernels):
-    """The kernel records without the calls kept for the trials."""
-    return [{**k, "cases": [{key: v for key, v in c.items()
-                             if not key.startswith("_")}
-                            for c in k["cases"]]} for k in kernels]
 
 
 # ---------------------------------------------------------------------------
@@ -1285,7 +1218,6 @@ def main():
                 f"{c['alu_ms']:.4f})")
         if not k["match"]:
             fail(f"kernel {k['name']} disagrees with its plain version")
-    trial = trials(kernels)
 
     t0 = time.perf_counter()
     blob = golden_proof(cfg)
@@ -1351,8 +1283,7 @@ def main():
                      lambda: general(good))
 
     log(smi)
-    log("trials: " + json.dumps(trial))
-    log(json.dumps({"kernels": public(kernels)}))
+    log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

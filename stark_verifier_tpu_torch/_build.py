@@ -6,15 +6,11 @@ library with a plain C interface, loaded with ctypes.  The library lands in
 `build/` beside this file, named by a hash of the sources, so a changed
 source rebuilds and an unchanged one loads in milliseconds.  Nothing here
 runs at import: the first kernel launch triggers the build.  A failed build
-raises; there is no fallback.  variant() builds and selects a second
-library from the same sources with preprocessor defines (the multiply on
-PTX carry chains, STARK_PTX_MUL), so that two forms of a kernel can be
-timed in one process.
+raises; there is no fallback.
 """
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import hashlib
 import os
@@ -63,8 +59,7 @@ class FriRowsArgs(ctypes.Structure):
                 ("poly_stride", _ll), ("col_stride", _ll),
                 ("lroot_stride", _ll), ("root2_stride", _ll), ("rows", _ll),
                 ("levels", _ll), ("q", _ll), ("n", _ll),
-                ("ginv", ctypes.c_uint32 * 8), ("inv4", ctypes.c_uint32 * 8),
-                ("form", _i)]
+                ("ginv", ctypes.c_uint32 * 8), ("inv4", ctypes.c_uint32 * 8)]
 
 
 _groups = ctypes.POINTER(WalkGroup)
@@ -79,23 +74,19 @@ SIGNATURES = {
     "stark_walk_branches_groups": [_groups, _i, _p],
 }
 
-_state = {"libs": {}, "defines": (), "seconds": None, "log": ""}
+_state = {"lib": None, "seconds": None, "log": ""}
 
 
 def sources() -> list:
     return sorted(CSRC.glob("*.cu"))
 
 
-def flags(defines: tuple = ()) -> list:
-    return NVCC_FLAGS + [f"-D{d}" for d in defines]
-
-
-def source_hash(defines: tuple = ()) -> str:
+def source_hash() -> str:
     h = hashlib.sha256()
     for f in sorted(CSRC.glob("*.cu*")):
         h.update(f.name.encode())
         h.update(f.read_bytes())
-    h.update(" ".join(flags(defines)).encode())
+    h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
 
 
@@ -119,14 +110,14 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
-def _compile(nvcc: str, out: Path, defines: tuple) -> str:
+def _compile(nvcc: str, out: Path) -> str:
     tmp = BUILD_DIR / f"tmp-{os.getpid()}-{out.stem}"
     tmp.mkdir(parents=True, exist_ok=True)
     try:
         srcs = sources()
         objs = [tmp / (s.stem + ".o") for s in srcs]
         procs = [subprocess.Popen(
-            [nvcc, *flags(defines), "-c", str(s), "-o", str(o)],
+            [nvcc, *NVCC_FLAGS, "-c", str(s), "-o", str(o)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             for s, o in zip(srcs, objs)]
         logs, failed = [], []
@@ -151,52 +142,34 @@ def _compile(nvcc: str, out: Path, defines: tuple) -> str:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def library_path(defines: tuple | None = None) -> Path:
-    """Where the library of this source state (and these flags) is built:
-    the selected variant's, or that of `defines`."""
-    if defines is None:
-        defines = _state["defines"]
-    return BUILD_DIR / f"libstark_kernels_{source_hash(defines)}.so"
+def library_path() -> Path:
+    """Where the library of this source state (and these flags) is built."""
+    return BUILD_DIR / f"libstark_kernels_{source_hash()}.so"
 
 
 def load() -> ctypes.CDLL:
-    """The kernels' shared library (the selected variant's), built first if
-    this source state has not been built here before."""
-    defines = _state["defines"]
-    lib = _state["libs"].get(defines)
-    if lib is not None:
-        return lib
+    """The kernels' shared library, built first if this source state has not
+    been built here before."""
+    if _state["lib"] is not None:
+        return _state["lib"]
     t0 = time.perf_counter()
-    out = library_path(defines)
+    out = library_path()
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        _state["log"] = _compile(find_nvcc(), out, defines)
-    lib = _state["libs"][defines] = declare(ctypes.CDLL(str(out)))
+        _state["log"] = _compile(find_nvcc(), out)
+    _state["lib"] = declare(ctypes.CDLL(str(out)))
     _state["seconds"] = time.perf_counter() - t0
-    return lib
-
-
-@contextlib.contextmanager
-def variant(*defines: str):
-    """Within the block every wrapper launches the kernels of the library
-    built with these preprocessor defines (built at the first launch)."""
-    prev = _state["defines"]
-    _state["defines"] = tuple(defines)
-    try:
-        yield
-    finally:
-        _state["defines"] = prev
+    return _state["lib"]
 
 
 def build_seconds():
-    """Seconds the last first load() of a variant took (build included), or
-    None before one."""
+    """Seconds the first load() took (build included), or None before it."""
     return _state["seconds"]
 
 
 def build_log() -> str:
-    """nvcc's output of this process's last build (register and spill
-    counts from -Xptxas -v); empty when the library was already built."""
+    """nvcc's output of this process's build (register and spill counts from
+    -Xptxas -v); empty when the library was already built."""
     return _state["log"]
 
 

@@ -11,22 +11,12 @@
 // halves, a Kogge-Stone carry, concatenate-built shifts, arithmetic selects.
 // A CUDA thread has 32x32->64 multiplies and cheap sequential carries, so a
 // value here is eight 32-bit limbs in registers, a product sum is one
-// 18-limb accumulator, and a carry is a chain through 64-bit adds.
-//
-// With -DSTARK_PTX_MUL the card's 256 x 256-bit product runs on the carry
-// flag instead (PTX mad.lo.cc / madc.hi.cc, the even/odd column scheme of
-// sppark's mont_t): the four limbs a[j] of one parity times b[i] put their
-// low and high words in four adjacent column pairs, so one chain of eight
-// instructions adds a row, and two such rows (even and odd j) a limb of b.
-// It is a variant to time against the portable body, which stays the
-// default: ptxas turns the chains into more instructions than the portable
-// form's (chip_smoke.py's multiply trial).
+// 18-limb accumulator, and a carry is a chain through 64-bit adds.  (The
+// same product on the carry flag, PTX mad.lo.cc / madc.hi.cc in sppark's
+// even / odd column scheme, compiles to more instructions on sm_90a and ran
+// kernels C and D about 10 % slower: PERF.md, section 7.)
 #pragma once
 #include "common.cuh"
-
-#if defined(__CUDA_ARCH__) && defined(STARK_PTX_MUL)
-#define FE_PTX_MUL 1
-#endif
 
 #define FE_C0 0xFFFFFFFFu  // C = FE_C1 * 2^32 + FE_C0
 #define FE_C1 350u
@@ -157,84 +147,9 @@ STARK_HD void fe_acc_zero(fe_acc& acc) {
   for (int k = 0; k < FE_ACC; ++k) acc.v[k] = 0;
 }
 
-#if defined(FE_PTX_MUL)
-// One instruction each, on the carry flag.  Volatile: the compiler must not
-// move one link of a chain past another, since it cannot see the flag.
-__device__ __forceinline__ void ptx_mad_lo_cc(uint32_t& d, uint32_t a,
-                                              uint32_t b) {
-  asm volatile("mad.lo.cc.u32 %0, %1, %2, %0;" : "+r"(d) : "r"(a), "r"(b));
-}
-__device__ __forceinline__ void ptx_madc_lo_cc(uint32_t& d, uint32_t a,
-                                               uint32_t b) {
-  asm volatile("madc.lo.cc.u32 %0, %1, %2, %0;" : "+r"(d) : "r"(a), "r"(b));
-}
-__device__ __forceinline__ void ptx_madc_hi_cc(uint32_t& d, uint32_t a,
-                                               uint32_t b) {
-  asm volatile("madc.hi.cc.u32 %0, %1, %2, %0;" : "+r"(d) : "r"(a), "r"(b));
-}
-__device__ __forceinline__ void ptx_add_cc(uint32_t& d, uint32_t a) {
-  asm volatile("add.cc.u32 %0, %0, %1;" : "+r"(d) : "r"(a));
-}
-__device__ __forceinline__ void ptx_addc_cc(uint32_t& d, uint32_t a) {
-  asm volatile("addc.cc.u32 %0, %0, %1;" : "+r"(d) : "r"(a));
-}
-
-// r[0..7] += (a[0] + a[2] 2^64 + a[4] 2^128 + a[6] 2^192) * b, where r[7]
-// is written, not added to: row i of a product (columns i .. i+7) is the
-// first to reach column i+7, and the sum of the rows so far, below
-// 2^(32 (i + 8)) (the four limbs of one parity are below 2^224 as a
-// number), never carries out of it.
-__device__ __forceinline__ void fe_ptx_row(uint32_t* r, const uint32_t* a,
-                                           uint32_t b) {
-  ptx_mad_lo_cc(r[0], a[0], b);
-  ptx_madc_hi_cc(r[1], a[0], b);
-#pragma unroll
-  for (int k = 1; k < 3; ++k) {
-    ptx_madc_lo_cc(r[2 * k], a[2 * k], b);
-    ptx_madc_hi_cc(r[2 * k + 1], a[2 * k], b);
-  }
-  ptx_madc_lo_cc(r[6], a[6], b);
-  asm volatile("madc.hi.u32 %0, %1, %2, 0;" : "=r"(r[7]) : "r"(a[6]), "r"(b));
-}
-
-// p[0..15] = a * b: p sums the products a[j] b[i] of even j, o those of odd
-// j one column up, then p += o * 2^32 (a * b < 2^512: nothing carries out
-// of p[15]).
-__device__ __forceinline__ void fe_mul_wide(const fe& a, const fe& b,
-                                            uint32_t* p) {
-  uint32_t o[15];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    p[2 * k] = a.v[2 * k] * b.v[0];
-    p[2 * k + 1] = __umulhi(a.v[2 * k], b.v[0]);
-    o[2 * k] = a.v[2 * k + 1] * b.v[0];
-    o[2 * k + 1] = __umulhi(a.v[2 * k + 1], b.v[0]);
-  }
-#pragma unroll
-  for (int i = 1; i < 8; ++i) {
-    fe_ptx_row(p + i, a.v, b.v[i]);
-    fe_ptx_row(o + i, a.v + 1, b.v[i]);
-  }
-  ptx_add_cc(p[1], o[0]);
-#pragma unroll
-  for (int k = 2; k < 15; ++k) ptx_addc_cc(p[k], o[k - 1]);
-  asm volatile("addc.u32 %0, %1, 0;" : "=r"(p[15]) : "r"(o[14]));
-}
-#endif
-
-// acc += a * b (any a, b < 2^256).  Portable: schoolbook rows of 32x32->64
-// products, each row's carry run to the top of the accumulator.  On the
-// card: the 16-limb product on the carry flag, then one chain into acc.
+// acc += a * b (any a, b < 2^256): schoolbook rows of 32x32->64 products,
+// each row's carry run to the top of the accumulator.
 STARK_HD void fe_acc_mul(fe_acc& acc, const fe& a, const fe& b) {
-#if defined(FE_PTX_MUL)
-  uint32_t p[16];
-  fe_mul_wide(a, b, p);
-  ptx_add_cc(acc.v[0], p[0]);
-#pragma unroll
-  for (int k = 1; k < 16; ++k) ptx_addc_cc(acc.v[k], p[k]);
-  asm volatile("addc.cc.u32 %0, %0, 0;" : "+r"(acc.v[16]));
-  asm volatile("addc.u32 %0, %0, 0;" : "+r"(acc.v[17]));
-#else
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     uint64_t carry = 0;
@@ -252,7 +167,6 @@ STARK_HD void fe_acc_mul(fe_acc& acc, const fe& a, const fe& b) {
       carry = t >> 32;
     }
   }
-#endif
 }
 
 // acc += a.
@@ -311,12 +225,7 @@ STARK_HD fe fe_reduce(const fe_acc& acc) {
 // (a * b) mod p, canonical, for any a, b < 2^256.
 STARK_HD fe fe_mul(const fe& a, const fe& b) {
   fe_acc acc;
-#if defined(FE_PTX_MUL)
-  fe_mul_wide(a, b, acc.v);
-  acc.v[16] = acc.v[17] = 0;
-#else
   fe_acc_zero(acc);
   fe_acc_mul(acc, a, b);
-#endif
   return fe_reduce(acc);
 }

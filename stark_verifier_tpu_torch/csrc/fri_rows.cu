@@ -20,8 +20,11 @@
 //     odd split (see ops/quartic.py for the algebra):
 //
 //       4 P(sx) = (y0+y1+y2+y3) + ((y0+y2)-(y1+y3)) v + (e + f v) u
-//       e, f = (y0-y2) +- (y1-y3) g^-1,   u = sx / x1,   v = sx^2 / x1^2
+//       e, f = (y0-y2) +- (y1-y3) g^-1,   u = sx / x1,   v = u^2
 //
+//     (v is sx^2 / x1^2, the square of u: G2 has order `rows`, so the
+//     table row -2 e1 that the TPU kernel gathers for it is the square of
+//     row -e1, and special_x needs no square of its own);
 //   * holds P(sx) against the raw committed column value c, as the
 //     reference's unreduced compare does (main.rs:84-86): c must be
 //     canonical, and then 4 c = 4 P(sx) (mod p), 4 being invertible, so
@@ -29,20 +32,20 @@
 //     P(sx)'s 8 big-endian words when the caller asks for them (the one
 //     product more, then).
 //
-// How v is formed (`form`): STARK_FRI_U2 as u^2, which needs no square of
-// special_x and no second gather (G2 has order `rows`, so the table's row
-// -2 e1 is the square of its row -e1); STARK_FRI_SQUARE as sx^2 times the
-// gathered x1^-2, special_x squared in every thread; STARK_FRI_SHARED the
-// same with special_x canonicalized and squared once per (proof, level)
-// into shared memory.  All three give the same bits.
+// What bounds it on an H100: the arithmetic.  A row group needs about
+// 2,900 instructions of products, reductions, adds and compares
+// (probe_eval4_row of csrc/probes/work.cu in the SASS: six 256-bit
+// products, five reductions) against some 170 bytes: 17 instructions a
+// byte, where the card issues 10 for each byte it moves.  The thread
+// issues about 1.3 times that (loads, byte swaps, addresses) and runs at
+// about half the issue rate, as kernel D does: on an H100 80GB HBM3 at
+// 700 W, 512 proofs take 0.022 ms, 2.5x of the bound.  Forming v from a
+// square of special_x and a second gather instead, per thread or once per
+// (proof, level) in shared memory, took 1.2x as long; a cap of 80
+// registers (5 blocks an SM, the launch in one wave) gained nothing.
 #include "field256.cuh"
 
-#define STARK_FRI_U2 0
-#define STARK_FRI_SQUARE 1
-#define STARK_FRI_SHARED 2
-#define STARK_FRI_U2_ONE_WAVE 3  // U2 in at most 80 registers a thread
-
-// 5 warps: 4 (proof, level)s of 40 queries each at the default statement
+// 5 warps; at about 95 registers a thread, 4 blocks an SM
 #define STARK_FRI_BLOCK 160
 
 struct stark_row_consts {
@@ -57,7 +60,8 @@ struct stark_row_consts {
 //   col [proofs, levels, q, 8]: the committed column values (big endian);
 //   ys [proofs * levels * q] the column indices (int64, dense, < 2^32);
 //   lroot [proofs, 8], root2 [proofs, levels, 8]: the roots (big endian);
-//   g2 [rows, 8]: G2^i (little endian, canonical), rows a power of two;
+//   g2 [rows, 8]: G2^i (little endian, canonical), rows a power of two and
+//     the order of G2;
 //   ok [proofs * levels * q] bytes; lhs [proofs * levels * q, 8] (big
 //   endian) or null.
 struct stark_fri_rows_args {
@@ -78,7 +82,6 @@ struct stark_fri_rows_args {
   long long q;
   long long n;
   stark_row_consts k;
-  int form;
 };
 
 // The arithmetic of one row group: raw y0..y3, u and v -> 4 P(special_x),
@@ -130,86 +133,37 @@ STARK_HD bool stark_fri_holds(const fe& c, const fe& p4) {
   return !fe_add_c(c, u) && fe_eq(fe_times4(c), p4);
 }
 
-// Where row group i's operands lie.
-struct stark_row_at {
-  const uint32_t* rows;  // its four poly rows
-  const uint32_t* col;   // its committed value
-  const uint32_t* sx;    // special_x, the previous level's root
-  uint32_t e1;           // y * 4^l, 32-bit
-};
-
-STARK_HD stark_row_at stark_fri_locate(const stark_fri_rows_args& g,
-                                       long long i) {
+// Row group i: its operands where they lie, the check, its ok byte (and
+// its evaluation's words).
+STARK_HD void stark_fri_row(const stark_fri_rows_args& g, long long i) {
   // n < 2^31 (checked by the entry point): 32-bit divisions
   const uint32_t pl = (uint32_t)i / (uint32_t)g.q;  // (proof, level)
   const uint32_t kq = (uint32_t)i - pl * (uint32_t)g.q;
   const uint32_t pr = pl / (uint32_t)g.levels;
   const uint32_t l = pl - pr * (uint32_t)g.levels;
   const long long at = (long long)l * g.q + kq;
-  stark_row_at r;
-  r.rows = g.poly + pr * g.poly_stride + at * 32;
-  r.col = g.col + pr * g.col_stride + at * 8;
-  r.sx = l == 0 ? g.lroot + pr * g.lroot_stride
-                : g.root2 + pr * g.root2_stride + (l - 1) * 8;
+  const uint32_t* rows = g.poly + pr * g.poly_stride + at * 32;
+  const uint32_t* sx = l == 0 ? g.lroot + pr * g.lroot_stride
+                              : g.root2 + pr * g.root2_stride + (l - 1) * 8;
   // levels <= 16 (checked by the entry point): the shift stays below 32
-  r.e1 = (uint32_t)g.ys[i] << (2 * l);
-  return r;
-}
-
-STARK_HD fe stark_fri_gather(const stark_fri_rows_args& g, uint32_t idx) {
+  const uint32_t e1 = (uint32_t)g.ys[i] << (2 * l);
   const unsigned long long mask = (unsigned long long)g.rows - 1;
-  return fe_from_le_words(g.g2 + (idx & mask) * 8);
-}
-
-// Row group i from its canonical special_x sxc (and, unless U2, its square).
-template <bool U2>
-STARK_HD void stark_fri_row(const stark_fri_rows_args& g, long long i,
-                            const stark_row_at& at, const fe& sxc,
-                            const fe& sx2) {
-  const fe u = fe_mul(sxc, stark_fri_gather(g, 0u - at.e1));
-  const fe v = U2 ? fe_mul(u, u)
-                  : fe_mul(sx2, stark_fri_gather(g, 0u - 2u * at.e1));
+  const fe x1_inv = fe_from_le_words(g.g2 + ((0u - e1) & mask) * 8);
+  const fe u = fe_mul(fe_canon(fe_from_be_words(sx)), x1_inv);
   const fe p4 = stark_eval4_core(
-      fe_from_be_words(at.rows), fe_from_be_words(at.rows + 8),
-      fe_from_be_words(at.rows + 16), fe_from_be_words(at.rows + 24), u, v,
-      g.k);
-  g.ok[i] = stark_fri_holds(fe_from_be_words(at.col), p4);
+      fe_from_be_words(rows), fe_from_be_words(rows + 8),
+      fe_from_be_words(rows + 16), fe_from_be_words(rows + 24), u,
+      fe_mul(u, u), g.k);
+  g.ok[i] = stark_fri_holds(
+      fe_from_be_words(g.col + pr * g.col_stride + at * 8), p4);
   if (g.lhs) fe_to_be_words(fe_mul(p4, g.k.inv4), g.lhs + i * 8);
 }
 
 #if defined(__CUDACC__)
-template <int FORM>
-__global__ void __launch_bounds__(STARK_FRI_BLOCK,
-                                  FORM == STARK_FRI_U2_ONE_WAVE ? 5 : 1)
+__global__ void __launch_bounds__(STARK_FRI_BLOCK)
 stark_fri_rows_kernel(const __grid_constant__ stark_fri_rows_args g) {
-  const long long i0 = (long long)blockIdx.x * STARK_FRI_BLOCK;
-  const long long i = i0 + threadIdx.x;
-  if constexpr (FORM == STARK_FRI_SHARED) {
-    // the block's (proof, level)s: thread t takes the t-th one's special_x
-    __shared__ fe s_sxc[STARK_FRI_BLOCK], s_sx2[STARK_FRI_BLOCK];
-    const long long pl0 = i0 / g.q;
-    const long long last = (i0 + STARK_FRI_BLOCK < g.n ? i0 + STARK_FRI_BLOCK
-                                                       : g.n) - 1;
-    if (threadIdx.x <= last / g.q - pl0) {
-      const stark_row_at at = stark_fri_locate(g, (pl0 + threadIdx.x) * g.q);
-      const fe sxc = fe_canon(fe_from_be_words(at.sx));
-      s_sxc[threadIdx.x] = sxc;
-      s_sx2[threadIdx.x] = fe_mul(sxc, sxc);
-    }
-    __syncthreads();
-    if (i < g.n) {
-      const long long t = i / g.q - pl0;
-      stark_fri_row<false>(g, i, stark_fri_locate(g, i), s_sxc[t], s_sx2[t]);
-    }
-  } else {
-    if (i >= g.n) return;
-    const stark_row_at at = stark_fri_locate(g, i);
-    const fe sxc = fe_canon(fe_from_be_words(at.sx));
-    if constexpr (FORM == STARK_FRI_U2 || FORM == STARK_FRI_U2_ONE_WAVE)
-      stark_fri_row<true>(g, i, at, sxc, sxc);
-    else
-      stark_fri_row<false>(g, i, at, sxc, fe_mul(sxc, sxc));
-  }
+  const long long i = (long long)blockIdx.x * STARK_FRI_BLOCK + threadIdx.x;
+  if (i < g.n) stark_fri_row(g, i);
 }
 #endif
 
@@ -220,8 +174,7 @@ extern "C" int stark_fri_rows(const void* args, void* stream) {
       *static_cast<const stark_fri_rows_args*>(args);
   if (g.q <= 0 || g.levels <= 0 || g.levels > 16 || g.n < 0 ||
       g.n > 0x7FFFFFFFLL || g.n % (g.q * g.levels) != 0 ||
-      !stark_pow2(g.rows) || g.rows > (1LL << 32) || g.form < 0 ||
-      g.form > STARK_FRI_U2_ONE_WAVE)
+      !stark_pow2(g.rows) || g.rows > (1LL << 32))
     return 1;
   if (g.n == 0) return 0;
   if (!stark_aligned16(g.poly, g.poly_stride) ||
@@ -237,28 +190,11 @@ extern "C" int stark_fri_rows(const void* args, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const unsigned grid =
       (unsigned)((g.n + STARK_FRI_BLOCK - 1) / STARK_FRI_BLOCK);
-  if (g.form == STARK_FRI_U2)
-    stark_fri_rows_kernel<STARK_FRI_U2><<<grid, STARK_FRI_BLOCK, 0, st>>>(g);
-  else if (g.form == STARK_FRI_SQUARE)
-    stark_fri_rows_kernel<STARK_FRI_SQUARE>
-        <<<grid, STARK_FRI_BLOCK, 0, st>>>(g);
-  else if (g.form == STARK_FRI_SHARED)
-    stark_fri_rows_kernel<STARK_FRI_SHARED>
-        <<<grid, STARK_FRI_BLOCK, 0, st>>>(g);
-  else
-    stark_fri_rows_kernel<STARK_FRI_U2_ONE_WAVE>
-        <<<grid, STARK_FRI_BLOCK, 0, st>>>(g);
+  stark_fri_rows_kernel<<<grid, STARK_FRI_BLOCK, 0, st>>>(g);
   return (int)cudaGetLastError();
 #else
   (void)stream;
-  for (long long i = 0; i < g.n; ++i) {
-    const stark_row_at at = stark_fri_locate(g, i);
-    const fe sxc = fe_canon(fe_from_be_words(at.sx));
-    if (g.form == STARK_FRI_U2 || g.form == STARK_FRI_U2_ONE_WAVE)
-      stark_fri_row<true>(g, i, at, sxc, sxc);
-    else
-      stark_fri_row<false>(g, i, at, sxc, fe_mul(sxc, sxc));
-  }
+  for (long long i = 0; i < g.n; ++i) stark_fri_row(g, i);
   return 0;
 #endif
 }

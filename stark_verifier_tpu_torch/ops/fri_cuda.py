@@ -24,11 +24,6 @@ from . import field as F, quartic
 
 launches = {"fri_rows": 0}
 
-# how the kernel forms v = sx^2 / x1^2 (csrc/fri_rows.cu): 0 as u^2, 1 from
-# special_x squared in every thread and a second gather, 2 the same with the
-# square once per (proof, level) in shared memory
-FORM = 0
-
 
 def _limbs_to_u32x8(limbs16) -> ctypes.Array:
     """[16] 16-bit limbs (numpy or tensor) -> ctypes array of 8 LE 32-bit limbs."""
@@ -115,7 +110,7 @@ def _fri_args(poly_value, col_value, ys, l_root, root2, g2_words, ginv,
         l_root.data_ptr(), root2.data_ptr(), g2_words.data_ptr(),
         ok.data_ptr(), None if lhs is None else lhs.data_ptr(), *strides,
         g2_words.shape[0], nl, q, ok.numel(), _limbs_to_u32x8(ginv),
-        _limbs_to_u32x8(inv4), FORM)
+        _limbs_to_u32x8(inv4))
     return args, ok, lhs, ys
 
 
@@ -142,7 +137,8 @@ def fri_rows(poly_value, col_value, ys, l_root, root2, g2_words, ginv, inv4,
                                       root2, g2_words, ginv, inv4, lhs)
     lib = _build.load()
     with torch.cuda.device(dev):
-        rc = lib.stark_fri_rows(args, torch.cuda.current_stream(dev).cuda_stream)
+        rc = lib.stark_fri_rows(args,
+                                torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "stark_fri_rows")
     launches["fri_rows"] += 1
     del keep        # the launch is queued: the copy may go back to the pool

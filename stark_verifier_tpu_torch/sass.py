@@ -154,16 +154,15 @@ def dump(lib_path: str) -> str:
 PROBES = _build.CSRC / "probes" / "work.cu"
 
 
-def _probe_cubin(defines: tuple = ()) -> str:
+def _probe_cubin() -> str:
     """csrc/probes/work.cu built for sm_90a as a cubin beside the library
-    (named by the hash of the sources, the defines and the probe file)."""
-    h = hashlib.sha256(_build.source_hash(defines).encode()
-                       + PROBES.read_bytes())
+    (named by the hash of the sources and the probe file)."""
+    h = hashlib.sha256(_build.source_hash().encode() + PROBES.read_bytes())
     out = _build.BUILD_DIR / f"probes_{h.hexdigest()[:16]}.cubin"
     if not out.exists():
         _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".tmp{os.getpid()}")
-        flags = [f for f in _build.flags(defines)
+        flags = [f for f in _build.NVCC_FLAGS
                  if f not in ("-Xcompiler", "-fPIC", "-Xptxas", "-v")]
         subprocess.run([_build.find_nvcc(), *flags, "-cubin", str(PROBES),
                         "-o", str(tmp)], check=True, capture_output=True,
@@ -172,15 +171,14 @@ def _probe_cubin(defines: tuple = ()) -> str:
     return str(out)
 
 
-def work(listing: str | None = None, defines: tuple = ()) -> dict:
-    """Per probe of csrc/probes/work.cu built with `defines` (or of
-    `listing`, its SASS): its
+def work(listing: str | None = None) -> dict:
+    """Per probe of csrc/probes/work.cu (or of `listing`, its SASS): its
     path's counts by class less probe_copy's (the thread index, the
     operands' addresses), with "arith" the instructions of the ALU and FMA
     pipes (alu_only + add_alu + add_fma).  Loads, stores and moves are left
     out."""
     if listing is None:
-        listing = dump(_probe_cubin(defines))
+        listing = dump(_probe_cubin())
     probes = {name: counts(path(insns))
               for name, insns in parse(listing).items()}
     base = probes.pop("probe_copy")

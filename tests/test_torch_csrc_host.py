@@ -302,20 +302,17 @@ def _fri_operands(rng, b, nl, q, strided=True):
     return ops
 
 
-def _host_fri(hostlib, ops, want_lhs, form):
+def _host_fri(hostlib, ops, want_lhs):
     args, ok, lhs, keep = fri_cuda._fri_args(*ops, want_lhs)
-    args.form = form
     ok.view(torch.uint8).fill_(9)
     rc = hostlib.stark_fri_rows(args, None)
     assert ok.view(torch.uint8).max() <= 1          # every byte written
     return rc, ok, lhs
 
 
-@pytest.mark.parametrize("form", [0, 1, 2, 3])
-def test_host_eval4_rows(hostlib, form):
+def test_host_eval4_rows(hostlib):
     """Kernel C's body against its plain version, poly rows read with their
-    proof stride: the ok bytes and the evaluations' words, each way of
-    forming v."""
+    proof stride: the ok bytes and the evaluations' words."""
     rng = np.random.RandomState(5)
     ops = _fri_operands(rng, 3, 5, 6)
     want_ok, want_lhs = fri_cuda.fri_rows_plain(*ops)
@@ -325,7 +322,7 @@ def test_host_eval4_rows(hostlib, form):
     args, *_ = fri_cuda._fri_args(*ops, True)
     assert (args.poly_stride, args.col_stride, args.root2_stride) == (
         5 * 24 * 8 + 8, 5 * 6 * 8, 40)
-    rc, ok, lhs = _host_fri(hostlib, ops, True, form)
+    rc, ok, lhs = _host_fri(hostlib, ops, True)
     assert rc == 0
     np.testing.assert_array_equal(ok.numpy(), want_ok.numpy())
     np.testing.assert_array_equal(lhs.numpy(), want_lhs.numpy())
@@ -339,14 +336,14 @@ def test_host_fri_rows_one_proof_no_words(hostlib):
            for i, t in enumerate(_fri_operands(rng, 2, 3, 4, strided=False))]
     want_ok, _ = fri_cuda.fri_rows_plain(*ops)
     assert want_ok.shape == (3, 4) and want_ok[2, 0] and not want_ok[2, 3]
-    rc, ok, lhs = _host_fri(hostlib, ops, False, fri_cuda.FORM)
+    rc, ok, lhs = _host_fri(hostlib, ops, False)
     assert rc == 0 and lhs is None
     np.testing.assert_array_equal(ok.numpy(), want_ok.numpy())
 
 
 @pytest.mark.parametrize("fault", ["queries", "levels", "many_levels",
                                    "no_table", "rows", "poly_alignment",
-                                   "count", "form"])
+                                   "count"])
 def test_host_fri_rows_rejects_bad_arguments(hostlib, fault):
     """An argument kernel C cannot take: the entry point returns 1 and
     writes nothing."""
@@ -367,10 +364,8 @@ def test_host_fri_rows_rejects_bad_arguments(hostlib, fault):
         args.rows = 24
     elif fault == "poly_alignment":
         args.poly += 4
-    elif fault == "count":
-        args.n = 23                                  # not whole proofs
     else:
-        args.form = 4
+        args.n = 23                                  # not whole proofs
     assert hostlib.stark_fri_rows(args, None) == 1
     assert (ok.view(torch.uint8) == 9).all() and (lhs == 7).all()
 
