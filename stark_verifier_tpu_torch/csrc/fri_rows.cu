@@ -121,9 +121,13 @@ STARK_HD fe fe_times4(const fe& a) {
     t = (uint64_t)((a.v[j] << 2) | (a.v[j - 1] >> 30)) + (t >> 32);
     r.v[j] = (uint32_t)t;
   }
-  // a carry out of bit 255 leaves r below 2^43: 2^256 = C once more
+  // a carry out of bit 255 leaves r below 2^43: 2^256 = C once more.
+  // Limb by limb: a choice between two values put them on the stack.
+  const bool carry = (uint32_t)(t >> 32) != 0;
   fe_add_c(r, u);
-  return fe_canon((uint32_t)(t >> 32) ? u : r);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) r.v[j] = carry ? u.v[j] : r.v[j];
+  return fe_canon(r);
 }
 
 // The raw committed value c equals P(special_x), given 4 P canonical: c is

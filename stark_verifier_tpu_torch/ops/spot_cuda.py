@@ -134,10 +134,10 @@ def _spot_args(main_value, lincomb_value, positions, kh, ic1, ic0,
     positions = positions.contiguous()
     k_rows = None if k_rows is None else k_rows.contiguous()
     ok = torch.empty(lead + (n, 3), dtype=torch.bool, device=dev)
-    strides = [_build.proof_stride(words[name], nlead, f"spot_checks: {name}")
-               for name in ("main_value", "lincomb_value", "kh")]
-    strides += [_build.proof_stride(t, nlead, f"spot_checks: {name}")
-                for name, t in (("ic1", ic1), ("ic0", ic0))]
+    strides = [_build.proof_stride(t, nlead, f"spot_checks: {name}")
+               for name, t in (("main_value", main_value),
+                               ("lincomb_value", lincomb_value), ("kh", kh),
+                               ("ic1", ic1), ("ic0", ic0))]
     args = _build.SpotArgs(
         main_value.data_ptr(), lincomb_value.data_ptr(), positions.data_ptr(),
         kh.data_ptr(), ic1.data_ptr(), ic0.data_ptr(), tables.g2.data_ptr(),

@@ -361,11 +361,11 @@ class _FamilyVerifier(nn.Module):
     """What the verifiers of one statement family share.
 
     The statement tables are registered buffers (g2_powers, z_table,
-    z2_table, k_table, points_eval_matrix as int32 limb tensors; the spot
-    kernels' copies of the first four packed to 8 words a row, g2_words,
-    z_words, z2_words, k_words; level_moduli and points_pts as int64), so
-    they are copied to the device once and move with .to(); the host
-    constants (quartic_ginv, inv4, last_step_position, k_period,
+    z2_table, k_table, points_eval_matrix as int32 limb tensors; the copies
+    of the first four packed to 8 words a row that kernels C and D read,
+    g2_words, z_words, z2_words, k_words; level_moduli and points_pts as
+    int64), so they are copied to the device once and move with .to(); the
+    host constants (quartic_ginv, inv4, last_step_position, k_period,
     minipoly_root) are plain attributes.
     """
 
