@@ -46,19 +46,41 @@ the CPU):
                  blobs; a fresh power-2 proof through SquareStatement;
   8. strict   -- the golden proof accepts, a changed POINTS word rejects
                  under strict and accepts under parity, trailing bytes reject;
-  9. times    -- proofs/s at batch 1,024 (shared, unshared, runtime
-                 statement) and 8,192, single-proof latency.
+  9. bytes to verdicts -- 4,096 distinct blobs (seeded picks of 18 kinds:
+                 golden, one bit flipped at each protocol site, truncated,
+                 trailing bytes, the ragged blob, a log_steps=9 proof, empty;
+                 each kind with the oracle's verdict) through
+                 parallel.mesh.verify_stream in chunks of 512, with the host
+                 parse (the native parser built by cc, pinned batches) and
+                 with the device parse: verdicts exact in both, and each
+                 chunk's launches those of the walk its tree selects (and of
+                 its rerouted rows).  Then the host's share (native parse ms
+                 a proof on 1 and 4 threads, packing, H2D GB/s from pinned
+                 memory), a golden stream of 4,096 against the
+                 device-resident rate at 512 (the overlap of parse and
+                 launches; the worker thread against the prepare stage run
+                 inline, in turns), and the CLI (`verify` exits 0 / 1 / 2, `bench --batch 1024`) and
+                 the bench (`8192 5`, `--stream 4096 512`, with and without
+                 `--device-parse`) as subprocesses, their JSON lines parsed;
+ 10. times    -- proofs/s at batch 1,024 (shared, unshared, runtime
+                 statement) and 8,192, single-proof latency; last, the
+                 device's busy share during a stream of 2,048 golden blobs
+                 in each parse mode, under torch.profiler.
 
 Each path is driven with every launch count set to 0 just before it and read
 just after.  The last line printed is {"ok": true, "device": {...}}; the line
 before it holds one JSON record per kernel.
 """
 
+import concurrent.futures
 import json
 import os
+import random
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -77,13 +99,15 @@ import numpy as np  # noqa: E402
 import oracle  # noqa: E402  (pure Python + hashlib)
 import prover  # noqa: E402  (pure Python)
 import stark_verifier_tpu_torch as sv  # noqa: E402
-from stark_verifier_tpu_torch import _build, fp, sass  # noqa: E402
+from stark_verifier_tpu_torch import _build, fp, native, sass  # noqa: E402
 from stark_verifier_tpu_torch.config import StarkConfig, cached_tables  # noqa: E402
 from stark_verifier_tpu_torch.models.square import SquareStatement  # noqa: E402
 from stark_verifier_tpu_torch.ops import (  # noqa: E402
     blake2s, field as F, field_cuda, fri_cuda, merkle as merkle_ops,
     merkle_cuda, spot_cuda)
-from stark_verifier_tpu_torch.proofio import device as dev_io, wire  # noqa: E402
+from stark_verifier_tpu_torch.parallel import mesh as M  # noqa: E402
+from stark_verifier_tpu_torch.proofio import (  # noqa: E402
+    device as dev_io, ingest, static_layout as SL, wire)
 from stark_verifier_tpu_torch.protocol import verify as V  # noqa: E402
 
 DEV = torch.device("cuda")
@@ -1184,6 +1208,477 @@ def strict_phase(cfg, blob, tree_np):
         "under strict and accepts under parity; trailing bytes reject")
 
 
+# ---------------------------------------------------------------------------
+# phase 9: from proof bytes to verdicts
+# ---------------------------------------------------------------------------
+
+STREAM_BLOBS = 4096    # distinct blobs through verify_stream, chunks of CHUNK
+# per verify call of a chunk, by the walk its tree selects (main path and
+# unshared path above: A twice, B once, C once, D once, E twice a chunk)
+WALK_LAUNCHES = {
+    "shared": {"walk_leaf_levels": 2, "walk_quads": 1, "walk_branches": 0,
+               "fri_rows": 1, "spot_checks": 1, "mul_mod": 2},
+    "unshared": {"walk_leaf_levels": 0, "walk_quads": 0, "walk_branches": 2,
+                 "fri_rows": 1, "spot_checks": 1, "mul_mod": 2},
+}
+
+
+def moved_bytes(tree):
+    """Bytes of every tensor of a tree."""
+    total = [0]
+    dev_io.tree_map(lambda h: total.__setitem__(0, total[0] + nbytes(h)), tree)
+    return total[0]
+
+
+real_pool = M.ThreadPoolExecutor
+
+
+class InlineExecutor:
+    """Runs each submitted call at once, on the caller's thread: with it in
+    place of verify_stream's worker, a chunk is prepared on the main thread
+    before the previous one is dispatched (the pipeline without overlap)."""
+
+    def __init__(self, max_workers=None):
+        pass
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def submit(self, fn, *args):
+        fut = concurrent.futures.Future()
+        try:
+            fut.set_result(fn(*args))
+        except Exception as e:       # handed to the caller, as a pool would
+            fut.set_exception(e)
+        return fut
+
+
+def flip_bit(blob, word):
+    b = bytearray(blob)
+    b[4 * word + 1] ^= 1
+    return bytes(b)
+
+
+def stream_kinds(cfg, blob, consts, out):
+    """The kinds of blob the stream mixes, each with the oracle's verdict
+    and what the port's host parse makes of it: {name: (blob, verdict,
+    parses, ragged, device-parse reroutes it)}."""
+    lay = SL.canonical_layout(cfg)
+    _tag, root2, c0, p0 = lay.levels[0]
+    p2 = lay.levels[2][3]
+
+    def rec(g, i):
+        return g["start"] + i * g["rec"]
+
+    def wit(g, i):
+        return rec(g, i) + 2 + 2 * g["vw"] + 8 * (g["d"] // 2) + 3
+
+    # one word in the middle of a record of each protocol site of SITES
+    sites = {
+        "merkle_root": 3, "l_merkle_root": 11, "root2": root2 + 3,
+        "col_value": rec(c0, 0) + 4, "col_sibling": rec(c0, 0) + 1 + 8 + 3,
+        "poly_value": rec(p0, 5) + 4, "col_witness": wit(c0, 1),
+        "poly_witness": wit(p2, 3), "main_value": rec(lay.main, 7) + 13,
+        "main_witness": wit(lay.main, 7), "lincomb_value": rec(lay.lincomb, 4) + 4,
+        "lincomb_sibling": rec(lay.lincomb, 4) + 1 + 8 + 3,
+    }
+    blobs = {"golden": blob}
+    blobs.update({f"flip@{k}": flip_bit(blob, w) for k, w in sites.items()})
+    blobs["truncated"] = blob[:len(blob) // 3]
+    blobs["trailing"] = blob + b"trailing bytes"
+    blobs["ragged"] = ragged_blob(blob)
+    blobs["log_steps_9"] = prover.prove_to_bytes(3, 512, consts)[0]
+    blobs["empty"] = b""
+    kinds = {}
+    for name, b in blobs.items():
+        try:
+            t = dev_io.proof_tree(wire.parse_and_validate(b, cfg))
+            parses, ragged = True, not dev_io.is_rectangular(t)
+        except wire.WireFormatError:
+            parses, ragged = False, False
+        packed, lens = lay.pack([b])
+        _, shape_ok = lay.parse(packed)
+        reroute = (not bool(shape_ok[0])) or int(lens[0]) < lay.nbytes
+        kinds[name] = (b, oracle_verdict(b, cfg, 3, consts, out), parses,
+                       ragged, reroute)
+    return kinds
+
+
+def expected_chunk_launches(kinds, names, device_parse):
+    """The launches each chunk of the stream must make: its own verify call
+    by the walk its tree selects (host parse), or the blob verifier's shared
+    call plus the host verify of its rerouted rows (device parse)."""
+    def call(rows):
+        ok = [k for k in rows if kinds[k][2]]
+        if not ok:
+            return {}
+        return WALK_LAUNCHES["unshared" if any(kinds[k][3] for k in ok)
+                             else "shared"]
+
+    out = []
+    for c in range(0, len(names), CHUNK):
+        rows = names[c:c + CHUNK]
+        if device_parse:
+            dispatch = WALK_LAUNCHES["shared"]
+            reroute = call([k for k in rows if kinds[k][4]])
+        else:
+            dispatch, reroute = call(rows), {}
+        out.append((dispatch, reroute))
+    return out
+
+
+def add_counts(*parts):
+    total = {}
+    for p in parts:
+        for k, v in p.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def launch_counts():
+    counts = {}
+    for mod in KERNEL_MODULES:
+        counts.update(mod.launches)
+    return dict(counts)
+
+
+def run_stream(cfg, blobs, device_parse):
+    """verify_stream over `blobs` with every launch count set to 0 just
+    before: (verdicts, seconds, counts read at the first verdict of each
+    chunk, counts at the end)."""
+    for mod in KERNEL_MODULES:
+        for name in mod.launches:
+            mod.launches[name] = 0
+    verdicts, snaps = [], []
+    t0 = time.perf_counter()
+    for i, v in M.verify_stream(blobs, chunk=CHUNK, cfg=cfg,
+                                device_parse=device_parse, device=DEV):
+        if i != len(verdicts):
+            fail(f"verify_stream yielded index {i} out of order")
+        if i % CHUNK == 0:
+            snaps.append(launch_counts())
+        verdicts.append(v)
+    seconds = time.perf_counter() - t0
+    return verdicts, seconds, snaps, launch_counts()
+
+
+def check_stream_launches(mode, kinds, names, device_parse, snaps, final):
+    """The pipeline dispatches chunk j + 1 and then fetches chunk j (its
+    reroute runs then) before chunk j's first verdict: so the counts read
+    there grew by chunk j + 1's dispatch and chunk j's reroute (and, before
+    the first, chunk 0's dispatch)."""
+    exp = expected_chunk_launches(kinds, names, device_parse)
+    prev = {k: 0 for k in WALK_LAUNCHES["shared"]}
+    for j, snap in enumerate(snaps):
+        parts = [exp[j][1]] + ([exp[j + 1][0]] if j + 1 < len(exp) else [])
+        if j == 0:
+            parts.append(exp[0][0])
+        want = add_counts({k: 0 for k in prev}, *parts)
+        got = {k: snap[k] - prev[k] for k in prev}
+        if got != want:
+            fail(f"stream ({mode}): launches before chunk {j}'s verdicts "
+                 f"{got}, expected {want}")
+        prev = snap
+    if final != snaps[-1]:
+        fail(f"stream ({mode}): launches after the last chunk began")
+    return exp
+
+
+def ingest_ms(cfg, blobs, threads, reps=3):
+    """Median ms of ingest_chunk over `blobs` into a reused pinned layout."""
+    _t, ok, lay = ingest.ingest_chunk(blobs, cfg, None, threads=threads,
+                                      pin=True)
+    if not ok.all():
+        fail("ingest rejected a copy of the golden proof")
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        _t, ok, lay2 = ingest.ingest_chunk(blobs, cfg, lay, threads=threads,
+                                           pin=True)
+        ts.append(time.perf_counter() - t0)
+        if lay2 is not lay or not ok.all():
+            fail("ingest did not reuse its layout for the same blobs")
+    return statistics.median(ts) * 1e3, lay
+
+
+def h2d_gbps(host, reps=5):
+    """GB/s of one asynchronous copy of the host tree (pinned) to the card
+    on a side stream, by CUDA events."""
+    dev = dev_io.tree_map(lambda h: torch.empty(h.shape, dtype=h.dtype,
+                                                device=DEV), host)
+    moved = moved_bytes(host)
+    stream = torch.cuda.Stream()
+    rates = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with torch.cuda.stream(stream):
+            start.record(stream)
+            dev_io.tree_map(lambda d, h: d.copy_(h, non_blocking=True), dev,
+                            host)
+            end.record(stream)
+        end.synchronize()
+        rates.append(moved / (start.elapsed_time(end) * 1e-3) / 1e9)
+    return statistics.median(rates), moved
+
+
+def busy_share(call):
+    """(wall s, device-busy ms, device kernels) of one call under
+    torch.profiler; None where it records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rows = [(getattr(e, "device_time_total", 0.0) or 0.0, e.count)
+            for e in prof.key_averages()
+            if getattr(e, "device_type", None) is not None
+            and "cuda" in str(e.device_type).lower()]
+    busy_us = sum(r[0] for r in rows)
+    if busy_us <= 0:
+        return None
+    return wall, busy_us / 1e3, sum(r[1] for r in rows)
+
+
+def run_json(args, what, expect_rc=0, timeout=400):
+    """Run `python -m <args>` from the checkout; return its last stdout line
+    parsed as JSON (None when it prints none) after checking the exit."""
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", *args], cwd=ROOT,
+                         capture_output=True, text=True, timeout=timeout)
+    secs = time.perf_counter() - t0
+    if res.returncode != expect_rc:
+        fail(f"{what}: exit {res.returncode}, expected {expect_rc}\n"
+             f"{res.stdout[-2000:]}\n{res.stderr[-4000:]}")
+    lines = res.stdout.strip().splitlines()
+    rec = None
+    if lines and lines[-1].startswith("{"):
+        rec = json.loads(lines[-1])
+    log(f"{what}: exit {res.returncode} ({secs:.1f} s)"
+        + (f" {json.dumps(rec)}" if rec else ""))
+    return rec, res
+
+
+def stream_phase(cfg, blob, tree_np, consts, out):
+    """Phase 9: the stream of distinct blobs in both parse modes, the CLI
+    and the bench as a user runs them, and the numbers of the path from
+    bytes.  Returns the numbers for the times line."""
+    nums = {"card": nvidia_smi_line()}
+    nums["parser_build_s"] = native.build_seconds()
+    t0 = time.perf_counter()
+    kinds = stream_kinds(cfg, blob, consts, out)
+    log(f"stream kinds: {len(kinds)}, oracle verdicts "
+        f"{ {k: v[1] for k, v in kinds.items()} } "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    # 4,096 distinct blobs: seeded picks, half golden; the ragged blob only
+    # in chunks 2 and 5, so that the other chunks take the shared walk
+    rng = random.Random(2026)
+    plain = [k for k in kinds if k != "ragged"]
+    weights = [len(plain) - 1 if k == "golden" else 1 for k in plain]
+    names = rng.choices(plain, weights=weights, k=STREAM_BLOBS)
+    for at in (2 * CHUNK + 17, 2 * CHUNK + 300, 5 * CHUNK + 99):
+        names[at] = "ragged"
+    blobs = [bytes(bytearray(kinds[k][0])) for k in names]
+    want = [kinds[k][1] for k in names]
+    results = {}
+    for mode, dp in (("host parse", False), ("device parse", True)):
+        verdicts, secs, snaps, final = run_stream(cfg, blobs, dp)
+        if verdicts != want:
+            bad = [i for i, (g, w) in enumerate(zip(verdicts, want)) if g != w]
+            fail(f"stream ({mode}): wrong verdicts at {bad[:20]} "
+                 f"(kinds {[names[i] for i in bad[:5]]})")
+        exp = check_stream_launches(mode, kinds, names, dp, snaps, final)
+        walks = [("unshared" if e[0].get("walk_branches") else "shared")
+                 if e[0] else "none" for e in exp]
+        results[mode] = verdicts
+        log(f"stream ({mode}): {STREAM_BLOBS} distinct blobs of "
+            f"{len(kinds)} kinds in chunks of {CHUNK}: verdicts equal the "
+            f"oracle's ({sum(want)} accept); chunks' walks {walks}, "
+            f"reroutes {[bool(e[1]) for e in exp]}; launches {final}; "
+            f"{STREAM_BLOBS / secs:.1f} blobs/s")
+        nums[f"mixed_stream_{'device' if dp else 'host'}_parse_blobs_per_s"] = \
+            STREAM_BLOBS / secs
+    if results["host parse"] != results["device parse"]:
+        fail("the two parse modes disagree")
+
+    # the host's share: native parse, packing, copies from pinned memory
+    gold = [bytes(bytearray(blob)) for _ in range(CHUNK)]
+    for threads in (1, 4):
+        ms, lay = ingest_ms(cfg, gold, threads)
+        nums[f"ingest_ms_per_proof_{threads}_threads"] = ms / CHUNK
+    ts = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        wire.parse_proof_fast(blob)
+        ts.append(time.perf_counter() - t0)
+    nums["parse_proof_fast_ms"] = statistics.median(ts) * 1e3
+    slay = SL.canonical_layout(cfg)
+    pack = torch.zeros((CHUNK, slay.words), dtype=torch.int32,
+                       pin_memory=True)
+    ts = []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        slay.pack(gold, out=pack)
+        ts.append(time.perf_counter() - t0)
+    nums["pack_ms_per_proof"] = statistics.median(ts[1:]) * 1e3 / CHUNK
+    gbps, moved = h2d_gbps(lay.tensors)
+    nums["h2d_pinned_GBps_host_parse_chunk"] = gbps
+    nums["h2d_bytes_host_parse_chunk"] = moved
+    gbps, moved = h2d_gbps(pack)
+    nums["h2d_pinned_GBps_device_parse_chunk"] = gbps
+    nums["h2d_bytes_device_parse_chunk"] = moved
+    pageable = dev_io.tree_map(lambda h: h.clone(), lay.tensors)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dev_io.tree_map(lambda h: h.to(DEV), pageable)
+    torch.cuda.synchronize()
+    nums["h2d_pageable_GBps_host_parse_chunk"] = (
+        moved_bytes(lay.tensors) / (time.perf_counter() - t0) / 1e9)
+    del pageable
+
+    # golden stream against the device-resident rate at the chunk's batch,
+    # in turns with its parts alone: the host's (ingest or pack of the 4,096
+    # blobs, chunk by chunk) and the card's (8 verify calls of 512 resident
+    # proofs).  overlap = how much of the shorter part the stream hid behind
+    # the longer: 1 if the stream took as long as the longer part alone, 0
+    # if as long as both, below 0 if longer still
+    fn512, _ = V.make_verifier(cfg, 3, device=DEV)
+    res512 = device_batch(tree_np, CHUNK, tamper=False)
+    golden = [bytes(bytearray(blob)) for _ in range(STREAM_BLOBS)]
+    parts = [golden[k:k + CHUNK] for k in range(0, STREAM_BLOBS, CHUNK)]
+    held = {"layout": None}
+
+    def ingest_alone():
+        for part in parts:
+            _t, ok, held["layout"] = ingest.ingest_chunk(
+                part, cfg, held["layout"], pin=True)
+            if not ok.all():
+                fail("ingest rejected a copy of the golden proof")
+
+    def pack_alone():
+        for part in parts:
+            slay.pack(part, out=pack)
+
+    def verify_alone():
+        for _ in parts:
+            if not bool(fn512(res512).all()):
+                fail("a resident call rejected the golden proof")
+
+    def stream(dp):
+        got = list(M.verify_stream(golden, chunk=CHUNK, cfg=cfg,
+                                   device_parse=dp, device=DEV))
+        if len(got) != STREAM_BLOBS or not all(v for _, v in got):
+            fail(f"golden stream (device_parse={dp}) rejected a proof")
+
+    def seconds(call):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    runs = {"ingest": ingest_alone, "pack": pack_alone,
+            "verify": verify_alone, "host": lambda: stream(False),
+            "device": lambda: stream(True)}
+    for call in runs.values():
+        call()                                             # warm
+    took = {k: [] for k in runs}
+    for _ in range(2):
+        for k, call in runs.items():
+            took[k].append(seconds(call))
+    t = {k: statistics.median(v) for k, v in took.items()}
+    nums["resident_batch_512_proofs_per_s"] = STREAM_BLOBS / t["verify"]
+    for mode, host in (("host", "ingest"), ("device", "pack")):
+        nums[f"golden_stream_{mode}_parse_proofs_per_s"] = (
+            STREAM_BLOBS / t[mode])
+        nums[f"golden_stream_{mode}_parse_wire_MBps"] = (
+            len(blob) * STREAM_BLOBS / t[mode] / 1e6)
+        nums[f"stream_{mode}_parse_overlap"] = {
+            f"{host}_alone_s": took[host], "verify_alone_s": took["verify"],
+            "stream_s": took[mode],
+            "share": (t[host] + t["verify"] - t[mode])
+            / min(t[host], t["verify"])}
+    # the worker thread against the same pipeline with its prepare stage run
+    # inline on the main thread, in turns
+    for mode, dp in (("host", False), ("device", True)):
+        rates = []
+        for inline in (False, True, True, False):
+            M.ThreadPoolExecutor = InlineExecutor if inline else real_pool
+            try:
+                rates.append(["inline" if inline else "worker",
+                              STREAM_BLOBS / seconds(lambda: stream(dp))])
+            finally:
+                M.ThreadPoolExecutor = real_pool
+        nums[f"stream_{mode}_parse_worker_vs_inline"] = rates
+    del golden, blobs, parts, res512, held
+    # the CLI and the bench, as a user runs them
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        files = {"golden": blob, "flipped": flip_bit(blob, 3),
+                 "truncated": blob[:1000]}
+        for name, data in files.items():
+            with open(os.path.join(tmp, f"{name}.bin"), "wb") as f:
+                f.write(data)
+        path = {k: os.path.join(tmp, f"{k}.bin") for k in files}
+        cli = "stark_verifier_tpu_torch.cli"
+        for name, rc in (("golden", 0), ("flipped", 1), ("truncated", 2)):
+            run_json([cli, "verify", path[name]], f"cli verify {name}", rc)
+        rec, _ = run_json([cli, "bench", path["golden"], "--batch", "1024",
+                           "--iters", "5"], "cli bench --batch 1024")
+        nums["cli_bench_1024_proofs_per_s"] = rec["proofs_per_s"]
+        bench = "stark_verifier_tpu_torch.bench"
+        rec, _ = run_json([bench, path["golden"], "8192", "5"],
+                          "bench 8192 5")
+        nums["bench_8192"] = rec
+        for extra in ([], ["--device-parse"]):
+            rec, _ = run_json([bench, path["golden"], "--stream", "4096",
+                               str(CHUNK), *extra],
+                              f"bench --stream 4096 {CHUNK} {' '.join(extra)}")
+            nums[f"bench_stream{'_device_parse' if extra else ''}"] = rec
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for key, value in nums.items():
+        log(f"bytes-to-verdicts {key}: {json.dumps(value)}")
+    return nums
+
+
+def stream_busy(cfg, blob):
+    """The device's busy share during a stream of 2,048 golden blobs in each
+    parse mode: its device-busy time under torch.profiler over the wall time
+    of the same stream without it (the profiler slows the host's launches;
+    and it runs last, since it slows every later launch of the process)."""
+    golden = [bytes(bytearray(blob)) for _ in range(4 * CHUNK)]
+    for mode, dp in (("host", False), ("device", True)):
+        def call():
+            list(M.verify_stream(golden, chunk=CHUNK, cfg=cfg,
+                                 device_parse=dp, device=DEV))
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        wall = statistics.median(walls[1:])
+        prof = busy_share(call)
+        if prof is None:
+            log(f"bytes-to-verdicts stream_{mode}_parse_busy_share: "
+                "not measured (the profiler recorded no device time)")
+            continue
+        pwall, busy_ms, kernels = prof
+        log(f"bytes-to-verdicts stream_{mode}_parse_busy_share: "
+            f"{busy_ms / (wall * 1e3)} ({len(golden)} blobs: wall {wall} s "
+            f"without the profiler ({walls}), device busy {busy_ms} ms and "
+            f"{kernels} device kernels under it, wall {pwall} s there)")
+
+
 def main():
     t_start = time.perf_counter()
     smi = nvidia_smi_line()
@@ -1231,6 +1726,7 @@ def main():
     general = runtime_statement_path(cfg, blob, tree, want, kernels, consts,
                                      out)
     strict_phase(cfg, blob, tree_np)
+    stream_phase(cfg, blob, tree_np, consts, out)
     for k in kernels:
         if k["launches"] <= 0:
             fail(f"kernel {k['name']} was launched on none of the paths")
@@ -1275,6 +1771,7 @@ def main():
     times["single_proof_latency_s_median"] = statistics.median(lat[1:])
     times["total_seconds"] = time.perf_counter() - t_start
     log("times: " + json.dumps(times))
+    stream_busy(cfg, blob)
     if "--profile" in sys.argv:
         # last: the profiler slows every later launch of the process
         profile_call(f"main path, batch {BATCH}", lambda: fn(good))

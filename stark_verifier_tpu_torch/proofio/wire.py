@@ -30,8 +30,10 @@ a parsed-but-wrong-shape proof must REJECT with a structured error (the
 reference's equivalent is the hardcoded shape asserts panicking,
 main.rs:50,120-123).
 
-This is the port's own copy of the JAX package's parser (Python walker only;
-the native C scanner is not ported yet).
+This is the port's own copy of the JAX package's parser.  parse_proof is
+the Python walker; parse_proof_fast runs the native C scanner (native/),
+which gives the same arrays and the same errors, and is what
+parse_and_validate uses.
 """
 
 from __future__ import annotations
@@ -214,6 +216,15 @@ def parse_proof(proof_bytes: bytes, allow_trailing: bool = True) -> ProofArrays:
                        main, lincomb, consumed=r.off)
 
 
+def parse_proof_fast(proof_bytes: bytes,
+                     allow_trailing: bool = True) -> ProofArrays:
+    """Parse with the native C scanner (native/wire_parser.c): the same
+    output and error model as parse_proof.  Raises RuntimeError if the
+    scanner cannot be built; it never falls back to the walker."""
+    from .. import native
+    return native.parse_proof_native(proof_bytes, allow_trailing)
+
+
 def validate_proof(p: ProofArrays, cfg) -> None:
     """Check a parsed proof's structure against a statement family's shapes.
 
@@ -253,7 +264,8 @@ def validate_proof(p: ProofArrays, cfg) -> None:
 
 
 def parse_and_validate(proof_bytes: bytes, cfg) -> ProofArrays:
-    """Parse + family-shape validation in one step."""
-    p = parse_proof(proof_bytes, allow_trailing=not cfg.strict)
+    """Parse (native scanner) + family-shape validation in one step.  Strict
+    mode also rejects trailing bytes."""
+    p = parse_proof_fast(proof_bytes, allow_trailing=not cfg.strict)
     validate_proof(p, cfg)
     return p

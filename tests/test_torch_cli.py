@@ -1,0 +1,128 @@
+"""The port's command line (cli.py), bench (bench.py) and metrics
+(profiling.py) on the CPU: exit codes 0 / 1 / 2 on log_steps=9 blobs from
+tests/prover.py, the JSON lines' keys against the JAX package's, the
+compressions count against the JAX package's, and that every entry point
+asked for the card raises where there is none."""
+
+import json
+
+import pytest
+import torch
+
+import prover
+from stark_verifier_tpu import profiling as jprofiling
+from stark_verifier_tpu.config import StarkConfig as JCfg
+from stark_verifier_tpu_torch import bench, cli, profiling
+from stark_verifier_tpu_torch.config import StarkConfig
+
+torch.set_num_threads(1)
+CONSTS = [(i ** 7) ^ 42 for i in range(64)]
+
+
+@pytest.fixture(scope="module")
+def files(tmp_path_factory):
+    pb = prover.prove_to_bytes(3, 512, CONSTS)[0]
+    d = tmp_path_factory.mktemp("proofs")
+    flip = bytearray(pb)
+    flip[110] ^= 1
+    out = {}
+    for name, data in (("golden", pb), ("flipped", bytes(flip)),
+                       ("truncated", pb[:1000]), ("trailing", pb + b"xyz")):
+        out[name] = d / f"{name}.bin"
+        out[name].write_bytes(data)
+    return out
+
+
+CPU9 = ["--device", "cpu", "--log-steps", "9"]
+
+
+@pytest.mark.parametrize("name,extra,code", [
+    ("golden", [], 0), ("flipped", [], 1), ("truncated", [], 2),
+    ("trailing", [], 0), ("trailing", ["--strict"], 2),
+    ("golden", ["--batch", "2"], 0), ("flipped", ["--batch", "2"], 1)])
+def test_verify_exit_codes(files, capsys, name, extra, code):
+    assert cli.main(["verify", str(files[name]), *CPU9, *extra]) == code
+    out = capsys.readouterr()
+    if code == 0:
+        assert "proof verified" in out.out
+    elif code == 1:
+        assert "proof REJECTED" in out.out
+    else:
+        assert "malformed proof" in out.err
+
+
+def test_verify_profile_writes_a_trace(files, tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    assert cli.main(["verify", str(files["golden"]), *CPU9, "--profile"]) == 0
+    assert len(list((tmp_path / "trace").glob("*.json"))) == 1
+
+
+def test_bench_prints_the_report(files, capsys):
+    assert cli.main(["bench", str(files["golden"]), *CPU9, "--batch", "2",
+                     "--iters", "2"]) == 0
+    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    jrep = jprofiling.BenchReport(batch=2, iters=2, p50_s=1.0, device="x")
+    assert set(rec) == set(json.loads(jrep.to_json()))
+    assert rec["batch"] == 2 and rec["device"] == "cpu"
+    assert rec["comp_per_proof"] == profiling.compressions_per_proof(
+        StarkConfig(log_steps=9))
+    assert cli.main(["bench", str(files["flipped"]), *CPU9,
+                     "--iters", "1"]) == 1
+
+
+@pytest.mark.parametrize("extra", [["--devices", "2"],
+                                   ["--ref-single-chip", "100"]])
+def test_bench_multi_gpu_is_not_ported(files, capsys, extra):
+    assert cli.main(["bench", str(files["golden"]), *CPU9, *extra]) == 2
+    assert "multi-GPU is not ported yet" in capsys.readouterr().err
+
+
+def test_entry_points_default_to_the_card(files):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    for argv in (["verify", str(files["golden"]), "--log-steps", "9"],
+                 ["bench", str(files["golden"]), "--log-steps", "9"]):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cli.main(argv)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bench.main([str(files["golden"]), "--log-steps", "9"])
+
+
+def test_bench_module_json_lines(files, capsys, monkeypatch):
+    """Batch mode (latencies off: they are 90 single-proof calls) and stream
+    mode in both parse modes print the JAX bench's keys."""
+    monkeypatch.setenv("STARK_BENCH_LATENCY", "0")
+    bench.main([str(files["golden"]), "2", "1", *CPU9])
+    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert set(rec) == {"metric", "value", "unit", "vs_baseline"}
+    assert rec["unit"] == "proofs/s" and rec["value"] > 0
+    for extra in ([], ["--device-parse"]):
+        bench.main([str(files["golden"]), "--stream", "3", "2", *extra, *CPU9])
+        rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        assert set(rec) == {"metric", "value", "unit", "vs_baseline",
+                            "n_proofs", "chunk", "device_parse", "wire_MBps",
+                            "device"}
+        assert rec["n_proofs"] == 3 and rec["device_parse"] == bool(extra)
+    with pytest.raises(SystemExit, match="refusing"):
+        bench.main([str(files["flipped"]), "--stream", "2", "2", *CPU9])
+
+
+@pytest.mark.parametrize("log_steps", [9, 11, 13])
+def test_compressions_per_proof_equal_jax(log_steps):
+    assert profiling.compressions_per_proof(StarkConfig(log_steps=log_steps)) \
+        == jprofiling.compressions_per_proof(JCfg(log_steps=log_steps))
+    assert profiling.COMPRESSIONS_PER_PROOF == \
+        jprofiling.COMPRESSIONS_PER_PROOF
+
+
+def test_report_and_phase_times():
+    mine = profiling.BenchReport(batch=8, iters=3, p50_s=0.5, device="cpu",
+                                 n_devices=2, comp_per_proof=10)
+    ref = jprofiling.BenchReport(batch=8, iters=3, p50_s=0.5, device="cpu",
+                                 n_devices=2, comp_per_proof=10)
+    assert json.loads(mine.to_json()) == json.loads(ref.to_json())
+    times = profiling.PhaseTimes()
+    for _ in range(2):
+        with times.phase("parse"):
+            pass
+    assert set(times.phases) == {"parse"} and times.phases["parse"] >= 0

@@ -132,8 +132,11 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
         "from stark_verifier_tpu_torch import _build, config, fp\n"
         "from stark_verifier_tpu_torch.ops import (blake2s, field, fri_cuda,\n"
         "    merkle, merkle_cuda, mimc, prg, quartic, spot_cuda)\n"
-        "from stark_verifier_tpu_torch.proofio import device, wire\n"
+        "from stark_verifier_tpu_torch.proofio import (device, ingest,\n"
+        "    static_layout, wire)\n"
         "from stark_verifier_tpu_torch.protocol import verify\n"
+        "from stark_verifier_tpu_torch import bench, cli, native, profiling\n"
+        "from stark_verifier_tpu_torch.parallel import mesh\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'jaxlib' or m.split('.')[0] == 'stark_verifier_tpu']\n"
         "assert not bad, bad\n"
