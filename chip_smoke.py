@@ -62,7 +62,21 @@ the CPU):
                  inline, in turns), and the CLI (`verify` exits 0 / 1 / 2, `bench --batch 1024`) and
                  the bench (`8192 5`, `--stream 4096 512`, with and without
                  `--device-parse`) as subprocesses, their JSON lines parsed;
- 10. times    -- proofs/s at batch 1,024 (shared, unshared, runtime
+ 10. ranks    -- one process a rank (parallel/mesh.launch; each rank runs
+                 steps of parallel/rank_checks and counts its own launches):
+                 torch.cuda.device_count() ranks over NCCL verify the
+                 1,024-proof batch of phase 5 with the sharded verifier; two
+                 ranks on the one card over gloo run the sharded verifier,
+                 the sharded blob verifier, the 4,096-blob stream of phase 9
+                 in both parse modes and point parallelism on a golden and
+                 three tampered proofs, each exact against the one-process
+                 verdicts or the oracle's, each rank launching kernels A to
+                 E on the shared paths and F, C, D and E on the point path;
+                 then resident proofs/s at one rank and at two, one proof's
+                 latency by point parallelism at one and two ranks beside
+                 the one-process path's, the process group's start-up, and
+                 `cli bench --devices <cards> --ref-single-chip`;
+ 11. times    -- proofs/s at batch 1,024 (shared, unshared, runtime
                  statement) and 8,192, single-proof latency; last, the
                  device's busy share during a stream of 2,048 golden blobs
                  in each parse mode, under torch.profiler.
@@ -106,6 +120,7 @@ from stark_verifier_tpu_torch.ops import (  # noqa: E402
     blake2s, field as F, field_cuda, fri_cuda, merkle as merkle_ops,
     merkle_cuda, spot_cuda)
 from stark_verifier_tpu_torch.parallel import mesh as M  # noqa: E402
+from stark_verifier_tpu_torch.parallel import rank_checks as R  # noqa: E402
 from stark_verifier_tpu_torch.proofio import (  # noqa: E402
     device as dev_io, ingest, static_layout as SL, wire)
 from stark_verifier_tpu_torch.protocol import verify as V  # noqa: E402
@@ -118,7 +133,6 @@ BATCH = 1024
 BIG_BATCH = 8192
 RAGGED_BATCH = 16      # proofs of the padded batch of the unshared path
 MUL_BIG = 1 << 20      # elements of the multiply's large comparison
-KERNEL_MODULES = (merkle_cuda, fri_cuda, spot_cuda, field_cuda)
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): 3.35 TB/s of device
 # memory bandwidth and 67 TFLOP/s of float32 outside the tensor cores.  The
@@ -898,15 +912,10 @@ def profile_call(label, call):
 def counted(call):
     """Run `call` with every kernel's launch count set to 0 just before and
     read just after: (result, counts)."""
-    for mod in KERNEL_MODULES:
-        for name in mod.launches:
-            mod.launches[name] = 0
+    R.reset_counts()
     out = call()
     torch.cuda.synchronize()
-    counts = {}
-    for mod in KERNEL_MODULES:
-        counts.update(mod.launches)
-    return out, counts
+    return out, R.launch_counts()
 
 
 def require_launches(path, counts, launched, idle=()):
@@ -1338,20 +1347,11 @@ def add_counts(*parts):
     return total
 
 
-def launch_counts():
-    counts = {}
-    for mod in KERNEL_MODULES:
-        counts.update(mod.launches)
-    return dict(counts)
-
-
 def run_stream(cfg, blobs, device_parse):
     """verify_stream over `blobs` with every launch count set to 0 just
     before: (verdicts, seconds, counts read at the first verdict of each
     chunk, counts at the end)."""
-    for mod in KERNEL_MODULES:
-        for name in mod.launches:
-            mod.launches[name] = 0
+    R.reset_counts()
     verdicts, snaps = [], []
     t0 = time.perf_counter()
     for i, v in M.verify_stream(blobs, chunk=CHUNK, cfg=cfg,
@@ -1359,10 +1359,10 @@ def run_stream(cfg, blobs, device_parse):
         if i != len(verdicts):
             fail(f"verify_stream yielded index {i} out of order")
         if i % CHUNK == 0:
-            snaps.append(launch_counts())
+            snaps.append(R.launch_counts())
         verdicts.append(v)
     seconds = time.perf_counter() - t0
-    return verdicts, seconds, snaps, launch_counts()
+    return verdicts, seconds, snaps, R.launch_counts()
 
 
 def check_stream_launches(mode, kinds, names, device_parse, snaps, final):
@@ -1468,7 +1468,7 @@ def run_json(args, what, expect_rc=0, timeout=400):
 def stream_phase(cfg, blob, tree_np, consts, out):
     """Phase 9: the stream of distinct blobs in both parse modes, the CLI
     and the bench as a user runs them, and the numbers of the path from
-    bytes.  Returns the numbers for the times line."""
+    bytes.  Returns the stream's kinds and its names, for phase 10."""
     nums = {"card": nvidia_smi_line()}
     nums["parser_build_s"] = native.build_seconds()
     t0 = time.perf_counter()
@@ -1646,7 +1646,7 @@ def stream_phase(cfg, blob, tree_np, consts, out):
         shutil.rmtree(tmp, ignore_errors=True)
     for key, value in nums.items():
         log(f"bytes-to-verdicts {key}: {json.dumps(value)}")
-    return nums
+    return kinds, names
 
 
 def stream_busy(cfg, blob):
@@ -1677,6 +1677,142 @@ def stream_busy(cfg, blob):
             f"{busy_ms / (wall * 1e3)} ({len(golden)} blobs: wall {wall} s "
             f"without the profiler ({walls}), device busy {busy_ms} ms and "
             f"{kernels} device kernels under it, wall {pwall} s there)")
+
+
+# ---------------------------------------------------------------------------
+# phase 10: one rank per process (parallel/mesh.launch, parallel/rank_checks)
+# ---------------------------------------------------------------------------
+
+SHARED_KERNELS = ("walk_leaf_levels", "walk_quads", "fri_rows", "spot_checks",
+                  "mul_mod")                       # A, B, C, D, E
+POINT_KERNELS = ("walk_branches", "fri_rows", "spot_checks", "mul_mod")
+POINT_KINDS = ("golden", "flip@col_value", "flip@main_witness",
+               "flip@main_value")    # a FRI column, a main branch, a row of a
+#                                      spot check (its main value)
+RANK_TIMEOUT_S = 600
+
+
+def run_world(what, n, steps, **kw):
+    """launch(n, run_steps, steps): (each rank's step records, seconds from
+    the launch until every rank had joined its process group)."""
+    t0 = time.time()
+    ranks = M.launch(n, R.run_steps, steps, timeout_s=RANK_TIMEOUT_S, **kw)
+    startup = max(r["joined"] for r in ranks) - t0
+    log(f"ranks [{what}]: {n} ranks joined {startup:.2f} s after the launch; "
+        f"steps {[round(s['seconds'], 2) for s in ranks[0]['steps']]} s "
+        f"on rank 0")
+    return [r["steps"] for r in ranks], startup
+
+
+def rank_results(what, ranks, i, want, kernels, idle=()):
+    """Step i of every rank: its result must equal `want`, and the rank must
+    have launched each kernel of `kernels` and none of `idle`."""
+    for rank, steps in enumerate(ranks):
+        got = steps[i]["result"]
+        if got != want:
+            fail(f"ranks [{what}]: rank {rank} got {str(got)[:300]}, "
+                 f"expected {str(want)[:300]}")
+        require_launches(f"{what} (rank {rank})", steps[i]["launches"],
+                         kernels, idle)
+    log(f"ranks [{what}]: every rank exact; launches by rank "
+        f"{[steps[i]['launches'] for steps in ranks]}")
+
+
+def rank_phase(cfg, blob, want, kinds, names):
+    """Phase 10.  (a) device_count ranks over NCCL: the sharded verifier on
+    the 1,024-proof batch of phase 5.  (b) two ranks on one card over gloo:
+    the sharded verifier, the sharded blob verifier, the stream of phase 9
+    in both parse modes and point parallelism, each exact, each rank's
+    kernels launched; then (c) the numbers: resident proofs/s at one rank
+    and at two, one proof's latency by point parallelism at one and two
+    ranks beside the one-process path's, the process group's start-up, and
+    `cli bench --devices`, all logged."""
+    n_cards = torch.cuda.device_count()
+    nums = {"card": nvidia_smi_line(), "cards": n_cards}
+    sites = [(i, path) for i, path in enumerate(SITES, start=1)]
+    batch = {"cfg": cfg, "kinds": {"golden": blob}, "names": ["golden"] * BATCH,
+             "flips": sites, "shared": True}
+    want_batch = {"verdicts": want.tolist(), "all_ok": False}
+
+    ranks, nums["nccl_startup_s"] = run_world(
+        f"nccl x {n_cards}", n_cards,
+        [(R.sharded_batch, dict(batch, per_host=True))], devices="cuda")
+    rank_results(f"nccl x {n_cards}: sharded verifier, batch {BATCH}", ranks,
+                 0, want_batch, SHARED_KERNELS)
+
+    blobs = {k: v[0] for k, v in kinds.items()}
+    oracle_verdicts = [kinds[k][1] for k in names]
+    head = names[:BATCH]
+    fn, lay = SL.make_blob_verifier(cfg, device=DEV)
+    packed, _ = lay.pack([blobs[k] for k in head])
+    v, so = fn(packed.to(DEV))
+    want_blob = {"verdict": v.cpu().tolist(), "shape_ok": so.cpu().tolist()}
+    k = {"cfg": cfg, "kinds": blobs}
+    steps = [
+        (R.sharded_batch, dict(batch)),
+        (R.blob_batch, dict(k, names=head)),
+        (R.stream, dict(k, names=names, chunk=CHUNK, device_parse=False)),
+        (R.stream, dict(k, names=names, chunk=CHUNK, device_parse=True)),
+        (R.point, dict(k, names=list(POINT_KINDS))),
+        (R.time_resident, dict(k, kind="golden", batch=BATCH, turns=3)),
+        (R.time_point, dict(k, kind="golden", reps=5)),
+    ]
+    ranks, nums["gloo_startup_s"] = run_world(
+        "gloo x 2 on one card", 2, steps, devices="cuda", backend="gloo")
+    rank_results(f"gloo x 2: sharded verifier, batch {BATCH}", ranks, 0,
+                 want_batch, SHARED_KERNELS)
+    rank_results(f"gloo x 2: sharded blob verifier, {BATCH} blobs", ranks, 1,
+                 want_blob, SHARED_KERNELS)
+    for i, mode in ((2, "host parse"), (3, "device parse")):
+        rank_results(f"gloo x 2: stream ({mode}), {len(names)} blobs", ranks,
+                     i, oracle_verdicts, SHARED_KERNELS)
+    point_want = [kinds[k][1] for k in POINT_KINDS]
+    if point_want != [True, False, False, False]:
+        fail(f"the oracle's verdicts on the point kinds: {point_want}")
+    rank_results("gloo x 2: point parallelism", ranks, 4, point_want,
+                 POINT_KERNELS, idle=("walk_leaf_levels", "walk_quads"))
+
+    # (c) the numbers, each rank's seconds between barriers
+    res = [steps[5]["result"] for steps in ranks]
+    alone = res[0]["alone"]
+    every = [max(r["all"][t] for r in res) for t in range(len(res[0]["all"]))]
+    nums["resident_1024_one_rank_s"] = alone
+    nums["resident_1024_two_ranks_slowest_s"] = every
+    nums["resident_1024_one_rank_proofs_per_s"] = BATCH / statistics.median(
+        alone)
+    nums["resident_1024_two_ranks_proofs_per_s"] = BATCH / statistics.median(
+        every)
+    lat = [steps[6]["result"] for steps in ranks]
+    for key in ("single_process", "point_alone"):
+        nums[f"latency_{key}_s"] = lat[0][key]
+        nums[f"latency_{key}_samples_s"] = lat[0][key + "_s"]
+    nums["latency_point_two_ranks_s"] = statistics.median(
+        [max(r["point_all_s"][t] for r in lat)
+         for t in range(len(lat[0]["point_all_s"]))])
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        path = os.path.join(tmp, "golden.bin")
+        with open(path, "wb") as f:
+            f.write(blob)
+        ref = nums["resident_1024_one_rank_proofs_per_s"]
+        _rec, res = run_json(
+            ["stark_verifier_tpu_torch.cli", "bench", path, "--batch",
+             str(BATCH), "--iters", "5", "--devices", str(n_cards),
+             "--ref-single-chip", repr(ref)],
+            f"cli bench --devices {n_cards} --ref-single-chip {ref:.1f}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    lines = [json.loads(x) for x in res.stdout.splitlines()
+             if x.startswith("{")]
+    if len(lines) != 2 or lines[0].get("n_devices") != n_cards:
+        fail(f"cli bench --devices {n_cards}: printed {lines}")
+    eff = lines[1].get("scaling_efficiency")
+    if not isinstance(eff, (int, float)) or not 0 < eff < float("inf"):
+        fail(f"cli bench --devices {n_cards}: scaling line {lines[1]}")
+    nums["cli_bench_devices"] = lines
+    for key, value in nums.items():
+        log(f"ranks {key}: {json.dumps(value)}")
 
 
 def main():
@@ -1726,7 +1862,8 @@ def main():
     general = runtime_statement_path(cfg, blob, tree, want, kernels, consts,
                                      out)
     strict_phase(cfg, blob, tree_np)
-    stream_phase(cfg, blob, tree_np, consts, out)
+    kinds, names = stream_phase(cfg, blob, tree_np, consts, out)
+    rank_phase(cfg, blob, want, kinds, names)
     for k in kernels:
         if k["launches"] <= 0:
             fail(f"kernel {k['name']} was launched on none of the paths")

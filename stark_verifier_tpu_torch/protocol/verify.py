@@ -17,6 +17,10 @@ every proof of a batch through the same fixed-shape tensor program:
 
 Every assert of the reference becomes a boolean lane; the proof verdict is
 their AND, so a batch returns per-proof verdicts instead of panicking.
+With part=(rank, world) the verifier checks one rank's share of a proof
+(point parallelism, parallel/mesh.verify_point_parallel): its slice of the
+FRI queries, Merkle branches and spot checks, whose AND over the ranks is
+the verdict.
 Bit-exactness quirks preserved: raw (unreduced) column values compared
 against canonical evaluations, raw special_x / k1..k4 fed to products, stale
 quartic roots, steps-1 MiMC.
@@ -124,7 +128,7 @@ def _fri_checks(l_root_words, fri, tables, cfg: StarkConfig,
     # its witness depth (witnesses are per-level lists)
     i4 = torch.arange(4, dtype=torch.int64, device=dev)
     poly_pos = (ys[..., None] + mod_b[..., None] * i4).reshape(
-        *ys.shape[:-1], q * 4)
+        *ys.shape[:-1], ys.shape[-1] * 4)         # q, or a rank's share
     nlv = len(fri["col_witness"])
     groups = []
     for l in range(nlv):
@@ -232,8 +236,38 @@ def verify_low_degree_proof(l_root_words, fri, tables, cfg: StarkConfig,
     return ok
 
 
+def _share(t, part):
+    """The rank's contiguous share of the last axis of t (part = (rank,
+    world)); None is all of it."""
+    if part is None:
+        return t
+    rank, world = part
+    n = t.shape[-1] // world
+    return t[..., rank * n:(rank + 1) * n]
+
+
+def _check_part(tree, cfg: StarkConfig, part) -> None:
+    """The tree must hold exactly the share of `part` of the proof's
+    queries, branches and spot checks (parallel/mesh.shard_point_proof)."""
+    rank, world = part
+    if not 0 <= rank < world:
+        raise ValueError(f"part {part}: rank outside the world")
+    fri, q, s = tree["fri"], cfg.fri_queries, cfg.spot_checks
+    want = {"fri col_value": (fri["col_value"].shape[-2], q),
+            "fri poly_value": (fri["poly_value"].shape[-2], 4 * q),
+            "main value": (tree["main"]["value"].shape[-2], 2 * s),
+            "lincomb value": (tree["lincomb"]["value"].shape[-2], s)}
+    for what, (got, whole) in want.items():
+        if whole % world or got != whole // world:
+            raise ValueError(
+                f"part {part}: {what} holds {got} rows, not a share "
+                f"{whole} // {world} (cut the tree with "
+                f"parallel.mesh.shard_point_proof)")
+
+
 def verify_mimc_proof(tree, inp, output_limbs, tables, cfg: StarkConfig,
-                      constants_limbs=None, shared_merkle: bool = True):
+                      constants_limbs=None, shared_merkle: bool = True,
+                      part=None):
     """Full proof check; mirrors verify_mimc_proof (main.rs:99-197).
 
     tree: proof tree of int32 word tensors ([..., ...] leading batch dims);
@@ -246,7 +280,20 @@ def verify_mimc_proof(tree, inp, output_limbs, tables, cfg: StarkConfig,
     modulus stays fixed (the limb reduction is specialized to p).  tables:
     StatementTables or a verifier module (whose buffers are used as they
     are).  Returns [...] bool verdicts.
+
+    part=(rank, world): the tree holds only the rank's share of the FRI
+    queries (and their rows), of the main and lincomb branches and of the
+    spot checks; the Fiat-Shamir chains, the k-hashes and the boundary
+    interpolant still run whole, and their indices are cut to the share
+    before the walks, the row kernel and the spot kernel.  The verdict is
+    the share's; the proof's is the AND over the ranks.  Independent walk
+    only (shared_merkle=False): the shared walk dedups across branches.
     """
+    if part is not None:
+        if shared_merkle:
+            raise ValueError("part needs the independent walk "
+                             "(shared_merkle=False)")
+        _check_part(tree, cfg, part)
     m = cfg.modulus
     dev = tree["merkle_root"].device
     checks = []
@@ -270,7 +317,7 @@ def verify_mimc_proof(tree, inp, output_limbs, tables, cfg: StarkConfig,
     # FRI low-degree proof over the linear-combination tree (main.rs:127)
     checks.append(verify_low_degree_proof(
         tree["l_merkle_root"], tree["fri"], tables, cfg, tree.get("points"),
-        shared_merkle, ys=ys))
+        shared_merkle, ys=_share(ys, part)))
 
     # k1..k4 = Blake2s(merkle_root || i), raw 256-bit BE ints
     # (main.rs:131-146) -- the four 33-byte hashes batch into ONE call; the
@@ -290,6 +337,8 @@ def verify_mimc_proof(tree, inp, output_limbs, tables, cfg: StarkConfig,
     aug = torch.stack(
         [positions, (positions + cfg.skips) % cfg.precision], dim=-1)
     augmented = aug.reshape(*aug.shape[:-2], cfg.spot_checks * 2)  # interleaved
+    # a rank's share: positions [k0, k1) are main branches [2 k0, 2 k1)
+    positions, augmented = _share(positions, part), _share(augmented, part)
 
     if shared_merkle:
         checks.extend(merkle.verify_groups_shared([
@@ -426,14 +475,20 @@ class MimcVerifier(_FamilyVerifier):
             "output_limbs", to_tensor(fp.int_to_limbs(self.mimc_output), "cpu"),
             persistent=False)
 
-    def _verify(self, tree) -> torch.Tensor:
+    def _verify(self, tree, part=None) -> torch.Tensor:
         lead = tree["merkle_root"].shape[:-1]
         output = self.output_limbs.expand(lead + (fp.NLIMBS,))
         return verify_mimc_proof(tree, self.inp, output, self, self.cfg,
-                                 shared_merkle=self.shared_merkle)
+                                 shared_merkle=self.shared_merkle, part=part)
 
-    def forward(self, tree) -> torch.Tensor:
+    def forward(self, tree, part=None) -> torch.Tensor:
+        """part=(rank, world): the tree is the rank's share of each proof
+        (see verify_mimc_proof); not with `chunk`."""
         self._check_device(tree)
+        if part is not None:
+            if self.chunk is not None:
+                raise ValueError("part is not for the chunked verifier")
+            return self._verify(tree, part)
         if self.chunk is None:
             return self._verify(tree)
         batch = tree["merkle_root"].shape[0]

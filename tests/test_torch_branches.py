@@ -13,10 +13,20 @@ import torch
 
 import oracle
 from stark_verifier_tpu.ops import merkle as JM, merkle_pallas
+from test_torch_merkle import LOOP_LAX
 from stark_verifier_tpu_torch.ops import merkle as M, merkle_cuda
 from stark_verifier_tpu_torch.proofio import wire
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_level_loops():
+    """The JAX walks' level scans as loops, compiled once per shape
+    (test_torch_merkle.LOOP_LAX)."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(JM, "lax", LOOP_LAX)
+        yield
 
 
 def _t(a):

@@ -70,11 +70,58 @@ def test_bench_prints_the_report(files, capsys):
                      "--iters", "1"]) == 1
 
 
-@pytest.mark.parametrize("extra", [["--devices", "2"],
-                                   ["--ref-single-chip", "100"]])
-def test_bench_multi_gpu_is_not_ported(files, capsys, extra):
-    assert cli.main(["bench", str(files["golden"]), *CPU9, *extra]) == 2
-    assert "multi-GPU is not ported yet" in capsys.readouterr().err
+def _bench_lines(capsys):
+    return [json.loads(line) for line in capsys.readouterr().out.splitlines()
+            if line.startswith("{")]
+
+
+def test_bench_devices_runs_gloo_ranks(files, capsys):
+    """--devices 2 --device cpu: two gloo ranks, one proof each; the report
+    counts both, and the scaling line divides its per-rank rate by the
+    reference."""
+    assert cli.main(["bench", str(files["golden"]), *CPU9, "--batch", "2",
+                     "--devices", "2", "--iters", "1",
+                     "--ref-single-chip", "100"]) == 0
+    report, scaling = _bench_lines(capsys)
+    assert report["n_devices"] == 2 and report["batch"] == 2
+    assert report["device"] == "cpu"
+    assert report["proofs_per_s_per_chip"] == pytest.approx(
+        report["proofs_per_s"] / 2, abs=0.01)
+    assert scaling == {
+        "scaling_efficiency": round(report["proofs_per_s_per_chip"] / 100, 4),
+        "n_devices": 2, "ref_single_chip_proofs_per_s": 100.0}
+
+
+def test_bench_scaling_line_at_one_device(files, capsys):
+    assert cli.main(["bench", str(files["golden"]), *CPU9, "--iters", "1",
+                     "--ref-single-chip", "100"]) == 0
+    report, scaling = _bench_lines(capsys)
+    assert report["n_devices"] == 1 and scaling["n_devices"] == 1
+    assert scaling["scaling_efficiency"] > 0
+
+
+@pytest.mark.parametrize("case", ["uneven_batch", "more_than_the_cards",
+                                  "malformed"])
+def test_bench_devices_refusals(files, capsys, monkeypatch, case):
+    """A batch that is not a multiple of --devices, (on the card's path)
+    more ranks than cards, and a malformed proof exit 2 with a message and
+    start no rank."""
+    proof = files["golden"]
+    if case == "uneven_batch":
+        argv = [*CPU9, "--batch", "3", "--devices", "2"]
+        message = "--batch 3 must be a multiple of --devices 2"
+    elif case == "malformed":
+        proof = files["truncated"]
+        argv = [*CPU9, "--batch", "2", "--devices", "2"]
+        message = "malformed proof"
+    else:
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+        argv = ["--log-steps", "9", "--batch", "2", "--devices", "2"]
+        message = "--devices 2: this machine has 1 cards"
+    monkeypatch.setattr(cli, "bench_rank", None)     # no rank may start
+    assert cli.main(["bench", str(proof), *argv]) == 2
+    assert message in capsys.readouterr().err
 
 
 def test_entry_points_default_to_the_card(files):

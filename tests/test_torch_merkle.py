@@ -5,6 +5,7 @@ chain kernel), and the shared-path walk (ops/merkle.py) against its JAX
 namesake on the branch groups of a freshly proved statement.  Tolerance
 0."""
 
+import jax
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -19,6 +20,31 @@ from stark_verifier_tpu_torch.proofio import wire
 
 torch.set_num_threads(1)
 CONSTS = [(i ** 7) ^ 42 for i in range(64)]
+
+
+class _LoopLax:
+    """jax.lax, but scan runs its body in a Python loop over the same xs.
+    Called eagerly, lax.scan compiles its body anew on every call (a new
+    closure each time: the JAX walks' levels cost seconds of compiling a
+    group); in the loop the body's ops run one by one, compiled once per
+    shape and cached by JAX.  The same operations on the same values: for
+    the JAX reference functions of these tests, called eagerly, never under
+    jit (there the loop would unroll)."""
+
+    def __getattr__(self, name):
+        return getattr(jax.lax, name)
+
+    @staticmethod
+    def scan(f, init, xs):
+        carry = init
+        for i in range(jax.tree.leaves(xs)[0].shape[0]):
+            carry, y = f(carry, jax.tree.map(lambda x, i=i: x[i], xs))
+            if y is not None:
+                raise NotImplementedError("the loop keeps no scan outputs")
+        return carry, None
+
+
+LOOP_LAX = _LoopLax()
 
 
 @pytest.fixture(autouse=True)
@@ -394,7 +420,8 @@ FIELDS = ["value", "sibling", "witness"]
 @pytest.fixture(scope="module")
 def shared_results(fresh):
     """Both packages' per-group verdicts on ONE batch (the JAX side runs op
-    by op and costs most of a minute, so it runs once): the good proof; one
+    by op, its level scans as loops, and still costs tens of seconds, so it
+    runs once): the good proof; one
     copy per group with one word flipped in that group (value, sibling or
     witness in turn); a quad that is not 4-aligned; a quad that is
     consecutive but straddles two subtree nodes; a ragged depth.  The JAX
@@ -407,6 +434,7 @@ def shared_results(fresh):
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("STARK_SHARED_TAIL", "2")
         mp.setattr(merkle_pallas, "SUB_TILE", 1)
+        mp.setattr(JM, "lax", LOOP_LAX)
         return _run_both(_batched(groups, variants))
 
 

@@ -6,6 +6,7 @@ against the JAX functions called eagerly.  Tolerance 0."""
 
 import random
 
+import jax
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -48,16 +49,16 @@ def _root(n):
 @pytest.mark.parametrize("n", [1, 2, 16, 64])
 def test_intt_vs_oracle_and_jax(n):
     """Every size against the oracle's fft_inv; n = 16 also against the JAX
-    package's intt called eagerly (which costs it a compilation per stage, so
-    one size must do)."""
+    package's intt, jitted (one compilation; eagerly it compiles every stage,
+    five times as long)."""
     rng = random.Random(n)
     vals = [0, P - 1][:n] + [rng.randrange(P) for _ in range(max(0, n - 2))]
     a = fp.ints_to_limbs(vals)
     got = _n(ntt.intt(_t(a), _root(n)))
     assert _ints(got) == oracle.fft_inv(vals, _root(n))
     if n == 16:
-        np.testing.assert_array_equal(
-            got, np.asarray(JN.intt(jnp.asarray(a), _root(n))))
+        np.testing.assert_array_equal(got, np.asarray(
+            jax.jit(JN.intt, static_argnums=1)(jnp.asarray(a), _root(n))))
 
 
 def test_ntt_forward_batched_and_round_trip():
@@ -142,9 +143,8 @@ def test_points_checks_vs_jax(points):
     jcfg = JCfg(log_steps=9, strict=True)
     jtables = jcached_tables(jcfg)
     direct = V.points_direct_check(_t(batch), tables, cfg)
-    np.testing.assert_array_equal(
-        direct.numpy(),
-        np.asarray(JV.points_direct_check(jnp.asarray(batch), jtables, jcfg)))
+    np.testing.assert_array_equal(direct.numpy(), np.asarray(jax.jit(
+        lambda b: JV.points_direct_check(b, jtables, jcfg))(jnp.asarray(batch))))
     assert direct.tolist() == [True, False, False, True]
     binding = V.points_root_binding(_t(batch), _t(last_root))
     np.testing.assert_array_equal(
@@ -160,8 +160,10 @@ def test_direct_check_catches_a_tamper_the_binding_cannot(points):
     cfg, tables, batch, _ = points
     tampered = _t(batch[1])
     new_root = M.merkle_root_permuted(tampered)
+    # the JAX roots of the whole batch, whose shapes the binding's call in
+    # test_points_checks_vs_jax has compiled already: row 1 is this one's
     np.testing.assert_array_equal(
-        _n(new_root), np.asarray(JM.merkle_root_permuted(jnp.asarray(batch[1]))))
+        _n(new_root), np.asarray(JM.merkle_root_permuted(jnp.asarray(batch)))[1])
     assert bool(V.points_root_binding(tampered, new_root))
     assert not bool(V.points_direct_check(tampered, tables, cfg))
 

@@ -136,7 +136,7 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
         "    static_layout, wire)\n"
         "from stark_verifier_tpu_torch.protocol import verify\n"
         "from stark_verifier_tpu_torch import bench, cli, native, profiling\n"
-        "from stark_verifier_tpu_torch.parallel import mesh\n"
+        "from stark_verifier_tpu_torch.parallel import mesh, rank_checks\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'jaxlib' or m.split('.')[0] == 'stark_verifier_tpu']\n"
         "assert not bad, bad\n"

@@ -2,8 +2,9 @@
 batch of a fresh proof, its 12 single-site tamperings and a few more good
 copies; the unshared walk on the same batch and on a padded one with a
 short-depth proof, group by group against the JAX package's verify_branches;
-the runtime-statement verifier; plus the chunked form, the bytes facade and a
-second statement family against the oracle.
+the runtime-statement verifier; two gloo ranks (the sharded verifier and
+point parallelism); plus the chunked form, the bytes facade and a second
+statement family against the oracle.
 
 The JAX verifier costs minutes to compile for each batch shape, so this file
 calls it with exactly one shape and is the only port test that does."""
@@ -15,6 +16,7 @@ import torch
 
 import oracle
 import prover
+from test_torch_merkle import LOOP_LAX
 from stark_verifier_tpu.config import StarkConfig as JCfg
 from stark_verifier_tpu.ops import merkle as JM
 from stark_verifier_tpu.proofio import device as jdevice, wire as jwire
@@ -23,6 +25,8 @@ import stark_verifier_tpu_torch as svt
 from stark_verifier_tpu_torch import fp
 from stark_verifier_tpu_torch.config import StarkConfig
 from stark_verifier_tpu_torch.ops import merkle as M
+from stark_verifier_tpu_torch.parallel import mesh as PM
+from stark_verifier_tpu_torch.parallel import rank_checks as R
 from stark_verifier_tpu_torch.proofio import device, wire
 from stark_verifier_tpu_torch.protocol import verify as V
 
@@ -83,11 +87,32 @@ def test_port_verdicts_are_exact(port_verdicts):
     assert port_verdicts.tolist() == EXPECT
 
 
-def test_port_equals_jax_verifier(ref_batch, port_verdicts):
+@pytest.fixture(scope="module")
+def jax_verdicts(ref_batch):
+    """The JAX verifier's verdicts on the batch: its one compile here."""
     jfn, _ = JV.make_verifier(JCfg(log_steps=9), inp=3)
-    want = np.asarray(jfn(jdevice.to_device(ref_batch)))
-    assert want.tolist() == EXPECT
-    np.testing.assert_array_equal(port_verdicts.numpy(), want)
+    return np.asarray(jfn(jdevice.to_device(ref_batch)))
+
+
+def test_port_equals_jax_verifier(jax_verdicts, port_verdicts):
+    assert jax_verdicts.tolist() == EXPECT
+    np.testing.assert_array_equal(port_verdicts.numpy(), jax_verdicts)
+
+
+def test_two_ranks_equal_jax_verifier(ref_batch, jax_verdicts):
+    """Two gloo ranks: the sharded verifier on the batch, and point
+    parallelism on its golden proof and the one tampered in a FRI column
+    value, against the JAX verdicts, exactly."""
+    tampered = 1 + SITES.index(("fri", "col_value"))
+    steps = [(R.sharded_tree, {"cfg": CFG, "tree": ref_batch}),
+             (R.point_rows, {"cfg": CFG, "tree": ref_batch,
+                             "rows": [0, tampered]})]
+    for rank in PM.launch(2, R.run_steps, steps, devices="cpu",
+                          timeout_s=300):
+        sharded, point = (s["result"] for s in rank["steps"])
+        assert sharded["verdicts"] == jax_verdicts.tolist()
+        assert sharded["all_ok"] is False
+        assert point == jax_verdicts[[0, tampered]].tolist() == [True, False]
 
 
 @pytest.mark.parametrize("chunk", [4, 8, 16])
@@ -220,7 +245,8 @@ def test_padded_is_not_tampered(ref_batch, padded_batch, unshared_groups):
 @pytest.mark.parametrize("group", GROUPS)
 def test_group_walk_equals_jax_verify_branches(unshared_groups, group):
     """Each group's per-branch verdicts against the JAX package's
-    verify_branches called eagerly on the same operands."""
+    verify_branches called eagerly on the same operands (its level scan as
+    a loop, test_torch_merkle.LOOP_LAX)."""
     _, groups = unshared_groups
     (root, indices, value, sibling, witness, depth), got = groups[group]
 
@@ -229,8 +255,10 @@ def test_group_walk_equals_jax_verify_branches(unshared_groups, group):
                            if t.dtype == torch.int32
                            else t.numpy().astype(np.uint32))
 
-    want, _ = JM.verify_branches(j(root), j(indices), j(value), j(sibling),
-                                 j(witness), j(depth))
+    with pytest.MonkeyPatch.context() as mp:    # level scans as loops
+        mp.setattr(JM, "lax", LOOP_LAX)
+        want, _ = JM.verify_branches(j(root), j(indices), j(value),
+                                     j(sibling), j(witness), j(depth))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert got.shape == indices.shape and got[0].all()
     if group == "main":
