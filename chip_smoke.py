@@ -12,7 +12,7 @@ It needs a CUDA device, `nvcc`, and nothing else: no network, no JAX.  Phases
 the CPU):
 
   1. device   -- the card's name and power limit;
-  2. build    -- nvcc builds the six kernels from stark_verifier_tpu_torch/csrc;
+  2. build    -- nvcc builds the eight kernels from stark_verifier_tpu_torch/csrc;
                  the instruction counts of the bounds are read from this
                  build's SASS (stark_verifier_tpu_torch/sass.py: cuobjdump
                  of the library and of csrc/probes/work.cu);
@@ -22,10 +22,13 @@ the CPU):
                  launch, as the path runs them; C on the proof's strided poly
                  rows, its ok bytes and evaluation words; D at power 3 and 2,
                  with its K table and with K rows; the multiply's edge
-                 operands in C, D and E), with the wrapper's time (CUDA events
-                 around Python calls) and its device time (calls replayed
-                 from a CUDA graph) beside the least time the card could
-                 take; C's device time also at fewer proofs;
+                 operands in C, D and E; the NTT stage kernel alone on a
+                 middle stage of 2^20 points and through ops/ntt.ntt at 2^13,
+                 2^16 and 2^20, forward and inverse; the MiMC scan at 512
+                 steps on 1,024 inputs, powers 3 and 2), with the wrapper's
+                 time (CUDA events around Python calls) and its device time
+                 (calls replayed from a CUDA graph) beside the least time the
+                 card could take; C's device time also at fewer proofs;
   4. golden   -- a full-size MiMC-STARK proof (2^13 steps) is generated with
                  the pure-Python prover and accepted by the pure-Python oracle;
   5. main path -- 1,024 proofs (12 of them tampered, one per protocol site) in
@@ -41,9 +44,11 @@ the CPU):
                  a short depth) routed by is_rectangular, and
                  verify_proof_bytes on a ragged blob the oracle rejects;
   7. runtime statement -- make_general_verifier with input, round constants
-                 and output as tensors (the constants go through an iNTT whose
-                 products are the multiply kernel); verify_mimc on a list of
-                 blobs; a fresh power-2 proof through SquareStatement;
+                 and output as tensors (the constants go through an iNTT, one
+                 launch of the stage kernel a stage, and the iNTT is held
+                 against its plain version; kernel E takes the four boundary
+                 products); verify_mimc on a list of blobs; a fresh power-2
+                 proof through SquareStatement;
   8. strict   -- the golden proof accepts, a changed POINTS word rejects
                  under strict and accepts under parity, trailing bytes reject;
   9. bytes to verdicts -- 4,096 distinct blobs (seeded picks of 18 kinds:
@@ -75,11 +80,23 @@ the CPU):
                  then resident proofs/s at one rank and at two, one proof's
                  latency by point parallelism at one and two ranks beside
                  the one-process path's, the process group's start-up, and
-                 `cli bench --devices <cards> --ref-single-chip`;
+                 `cli bench --devices <cards> --ref-single-chip`; in both
+                 worlds the sharded NTT (parallel/ntt.py) at 2^16 and 2^20,
+                 forward and inverse, each rank's slice and the gathered
+                 result equal to the one-process ntt;
  11. times    -- proofs/s at batch 1,024 (shared, unshared, runtime
                  statement) and 8,192, single-proof latency; last, the
                  device's busy share during a stream of 2,048 golden blobs
-                 in each parse mode, under torch.profiler.
+                 in each parse mode, under torch.profiler;
+ 12. NTT, MiMC scan, debug (run after phase 10, before the times of phase
+                 11, whose profiler passes come last) -- ops/ntt.ntt at 2^20
+                 (20 stage launches, no kernel E), its round trip and one
+                 point against a Horner evaluation on the host, 2^13 against
+                 the oracle's FFT, `bench --ntt 13 20` as a subprocess; the
+                 MiMC scan through MimcStatement.compute_output (the known
+                 output of input 3), 16 inputs against the oracle at 8,192
+                 steps, ms for 1 and 1,024 inputs; one STARK_DEBUG=1 pass of
+                 the first 16 proofs of phase 5, and a wide limb that raises.
 
 Each path is driven with every launch count set to 0 just before it and read
 just after.  The last line printed is {"ok": true, "device": {...}}; the line
@@ -115,10 +132,11 @@ import prover  # noqa: E402  (pure Python)
 import stark_verifier_tpu_torch as sv  # noqa: E402
 from stark_verifier_tpu_torch import _build, fp, native, sass  # noqa: E402
 from stark_verifier_tpu_torch.config import StarkConfig, cached_tables  # noqa: E402
+from stark_verifier_tpu_torch.models.mimc import MimcStatement  # noqa: E402
 from stark_verifier_tpu_torch.models.square import SquareStatement  # noqa: E402
 from stark_verifier_tpu_torch.ops import (  # noqa: E402
     blake2s, field as F, field_cuda, fri_cuda, merkle as merkle_ops,
-    merkle_cuda, spot_cuda)
+    merkle_cuda, mimc, ntt, spot_cuda)
 from stark_verifier_tpu_torch.parallel import mesh as M  # noqa: E402
 from stark_verifier_tpu_torch.parallel import rank_checks as R  # noqa: E402
 from stark_verifier_tpu_torch.proofio import (  # noqa: E402
@@ -133,6 +151,11 @@ BATCH = 1024
 BIG_BATCH = 8192
 RAGGED_BATCH = 16      # proofs of the padded batch of the unshared path
 MUL_BIG = 1 << 20      # elements of the multiply's large comparison
+NTT_LOGS = (13, 16, 20)  # standalone NTT sizes held against the plain version
+NTT_STAGE = 10         # the middle stage of 2^20 timed alone
+MIMC_STEPS = 8192      # the default family's trace: 8,191 rounds
+MIMC_OUT_3 = int("95224774355499767951968048714566316597785297695903697235"
+                 "130434363122555476056")   # its output for input 3
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): 3.35 TB/s of device
 # memory bandwidth and 67 TFLOP/s of float32 outside the tensor cores.  The
@@ -168,7 +191,8 @@ SASS_COMPRESS = {"walk_leaf_levels": "stark_walk_groups_kernelILi0",
                  "walk_branches": "stark_walk_groups_kernelILi1",
                  "walk_quads": "stark_walk_groups_kernelILi2"}
 SASS_PROBES = ("probe_eval4_row", "probe_eval4_special_x", "probe_spot3",
-               "probe_spot2", "probe_mul")
+               "probe_spot2", "probe_mul", "probe_butterfly", "probe_mimc3",
+               "probe_mimc2")
 
 # operands that the 256-bit multiply must carry right: 0, 1, p - 1, p,
 # p + 1, 2^256 - 1, and limb patterns whose products carry through every
@@ -573,6 +597,92 @@ def check_mul(gen, ops, shape_a, shape_b, reps, upper_half=False):
                    reps)
 
 
+def ntt_root(n):
+    return pow(7, (P - 1) // n, P)
+
+
+def ntt_function_bound(ops, n, inverse):
+    """The least time of one n-point transform: its input read once, its
+    output written once, the twiddle powers read once, and n/2 log2(n)
+    butterflies (plus n products of the inverse's scaling)."""
+    logn = n.bit_length() - 1
+    work = [(n // 2 * logn, ops["probe_butterfly"])]
+    if inverse:
+        work.append((n, ops["probe_mul"]))
+    return n * 64 * 2 + n // 2 * 32, work
+
+
+def check_ntt_stage(gen, ops, logn, s):
+    """One launch of the stage kernel, stage s of a 2^logn-point transform,
+    as the stages between the first and the last run: the 8-word working
+    layout in and out (raw values, the edge values among them), against
+    the plain stage on the same values."""
+    n = 1 << logn
+    x = rand_limbs(gen, (n,))
+    w = ntt_root(n)
+    _, tw = ntt._card_tables(w, n, P, str(x.device))
+    src = F.limbs_to_words_le(x).contiguous()
+    dst = torch.empty_like(src)
+    lib = _build.load()
+
+    args = _build.NttStageArgs(
+        src=src.data_ptr(), perm=None, tw=tw.data_ptr(), scale=None,
+        dst=dst.data_ptr(), lead=1, n=n, src_n=n, half=1 << s,
+        tw_rows=tw.shape[0], tw_stride=tw.shape[0] >> s, tw_off=0,
+        src_limbs=0, dst_limbs=0)
+
+    def call():
+        ntt._launch(lib, ntt._stream(DEV), args)
+
+    call()
+    torch.cuda.synchronize()
+    got = F.words_le_to_limbs(dst)
+    stage_tw = torch.from_numpy(
+        ntt._twiddle_stages(w, n, P)[s].astype(np.int32)).to(DEV)
+    want = ntt.stage_plain(x, stage_tw)
+    return measure(f"one stage (s={s}) of 2^{logn} points, 8-word layout",
+                   call, lambda: ntt.stage_plain(x, stage_tw), [got], [want],
+                   nbytes(src, dst) + (1 << s) * 32,
+                   [(n // 2, ops["probe_butterfly"])], 10)
+
+
+def check_ntt(gen, ops, logn, inverse, reps):
+    """ops/ntt.ntt on the card (one stage launch a stage) against its plain
+    version on the card, raw values with the edge values among them."""
+    n = 1 << logn
+    x = rand_limbs(gen, (n,))
+    got = ntt.ntt(x, ntt_root(n), inverse)
+    torch.cuda.synchronize()
+    want = ntt.ntt_plain(x, ntt_root(n), inverse)
+    moved, work = ntt_function_bound(ops, n, inverse)
+    case = measure(f"{'inverse' if inverse else 'forward'} transform, "
+                   f"2^{logn} points", lambda: ntt.ntt(x, ntt_root(n),
+                                                      inverse),
+                   lambda: ntt.ntt_plain(x, ntt_root(n), inverse), [got],
+                   [want], moved, work, reps)
+    # what the stages move when each is its own launch: the sum of their
+    # byte bounds (the first reads and the last writes 16 limbs a point)
+    case["stage_bytes_bound_ms"] = (
+        n * (96 + 64 * (logn - 2) + 96) + n // 2 * 32 * logn) / \
+        MEM_BYTES_PER_S * 1e3
+    return case
+
+
+def check_mimc(gen, ops, n, steps, power=3, reps=3):
+    """The MiMC scan kernel against its plain version on the card: raw
+    inputs, the edge values among them, the default family's constants."""
+    x = rand_limbs(gen, (n,))
+    c = limbs_on_card([(i ** 7) ^ 42 for i in range(64)])
+    got = mimc.mimc(x, steps, c, power)
+    torch.cuda.synchronize()
+    want = mimc.mimc_plain(x, steps, c, power)
+    return measure(f"{n} inputs, {steps} steps, power {power}",
+                   lambda: mimc.mimc(x, steps, c, power),
+                   lambda: mimc.mimc_plain(x, steps, c, power), [got],
+                   [want], nbytes(x, c, got),
+                   [(n * (steps - 1), ops[f"probe_mimc{power}"])], reps)
+
+
 def branch_inputs(gen, b, n, vw, depth, max_depth=None, mixed=False):
     """One group of the unshared path: b x n branches of `depth` witness
     levels each (mixed: 1..max_depth by lane), witness arrays max_depth deep
@@ -698,7 +808,8 @@ def sass_phase():
         log(f"sass {key}: a compression {json.dumps(one)}; (all, ALU-only) "
             f"{ops[key]}")
     for name in rep:
-        if any(k in name for k in ("fri_rows", "spot_kernel", "mul_mod")):
+        if any(k in name for k in ("fri_rows", "spot_kernel", "mul_mod",
+                                   "ntt_stage", "mimc_scan")):
             log(f"sass {name}: a thread's path {json.dumps(rep[name]['path'])}")
     for key in SASS_PROBES:
         if key not in work:
@@ -749,9 +860,9 @@ def kernel_phase(cfg, tables, ops):
                check_spot(gen, ops, cfg, tabs, b, 2, 20),
                check_spot(gen, ops, cfg, tabs, b, cfg.power, 20, k_rows=True)]
     # kernel E at the runtime-statement path's shapes (a boundary product of
-    # one chunk and of the whole batch, every butterfly stage of the iNTT of
-    # the 64 constants as ops/ntt.py slices it, its final scaling) and at a
-    # size whose bound reads real work
+    # one chunk and of the whole batch), at strided upper-half views of
+    # butterfly blocks and a [64, 16] x [16] scaling (operand shapes of a
+    # plain-torch NTT stage), and at a size whose bound reads real work
     nc = cfg.num_constants
     e_cases = [check_mul(gen, ops, (b,), (), 20),
                check_mul(gen, ops, (BATCH,), (), 20),
@@ -784,6 +895,17 @@ def kernel_phase(cfg, tables, ops):
         gen, ops, b, [(2 * sp, 24, dm)], f"B={b} n={2 * sp} vw=24 depth={dm} "
         f"in {dm + 1} rows", 10, max_depth=dm + 1))
     check_value_classes(gen)
+    # the NTT stage kernel: one middle stage of 2^20 points alone, then
+    # whole transforms through ops/ntt.ntt, forward and inverse
+    ntt_cases = [check_ntt_stage(gen, ops, 20, NTT_STAGE)]
+    for logn in NTT_LOGS:
+        for inverse in (False, True):
+            ntt_cases.append(check_ntt(gen, ops, logn, inverse,
+                                       20 if logn < 20 else 5))
+    # the MiMC scan kernel: 512 steps on 1,024 inputs at both powers (the
+    # plain version on the card takes some 250 launches a round)
+    mimc_cases = [check_mimc(gen, ops, 1024, 512, 3),
+                  check_mimc(gen, ops, 1024, 512, 2)]
     per_proof = sum(c["compressions"] for c in f_cases[:2]) // b
     log(f"unshared walk: {per_proof} compressions a proof over "
         f"{len(f_main + f_fri)} groups in two launches")
@@ -816,6 +938,12 @@ def kernel_phase(cfg, tables, ops):
                tpu + "field_pallas.py:206", e_cases),
         record("walk_branches", src + "merkle_walk.cu",
                tpu + "merkle_pallas.py:117", f_cases),
+        # no pallas_call behind these two: the stage of the XLA-compiled
+        # ntt loop and the lax.scan of the MiMC rounds
+        record("ntt_stage", src + "ntt_stage.cu", tpu + "ntt.py:86",
+               ntt_cases),
+        record("mimc_scan", src + "mimc_scan.cu", tpu + "mimc.py:41",
+               mimc_cases),
     ]
 
 
@@ -1132,6 +1260,14 @@ def runtime_statement_path(cfg, blob, tree, want, kernels, consts, out):
     require_launches("runtime-statement path", counts,
                      ("mul_mod", "walk_leaf_levels", "walk_quads",
                       "fri_rows", "spot_checks"))
+    # the iNTT of the constants: one stage launch a stage, its products the
+    # stage kernel's own; kernel E keeps the four boundary products of a
+    # runtime input (iy1, -iy1, iy0, -last iy0)
+    stages = cfg.num_constants.bit_length() - 1
+    if counts["ntt_stage"] != stages or counts["mul_mod"] != 4:
+        fail(f"the runtime-statement path launched the stage kernel "
+             f"{counts['ntt_stage']} times and kernel E {counts['mul_mod']} "
+             f"times, expected {stages} and 4")
     for k in kernels:
         if k["name"] == "mul_mod":
             k["launches"], k["launches_on"] = (counts["mul_mod"],
@@ -1140,6 +1276,17 @@ def runtime_statement_path(cfg, blob, tree, want, kernels, consts, out):
         f"as tensors: verdicts equal the static path's; launches {counts}")
     replay_mul_launches(lambda: gfn(tree, inp_l, consts_l, out_l),
                         counts["mul_mod"], kernels)
+    root = cached_tables(cfg).minipoly_root
+    err = max_abs_err(ntt.intt(consts_l, root),
+                      ntt.ntt_plain(consts_l, root, inverse=True))
+    for k in kernels:
+        if k["name"] == "ntt_stage":
+            k["max_abs_err"] = max(k["max_abs_err"], err)
+    if err:
+        fail("the stage kernel's iNTT of the path's constants disagrees with "
+             "the plain version")
+    log(f"runtime-statement path: the iNTT of its {cfg.num_constants} "
+        f"constants against the plain version: max_abs_err {err}")
     none = torch.zeros(BATCH, dtype=torch.bool)
     expect_verdicts("wrong output", gfn(tree, inp_l, consts_l,
                                         limbs_on_card((out + 1) % P)), none)
@@ -1690,6 +1837,9 @@ POINT_KINDS = ("golden", "flip@col_value", "flip@main_witness",
                "flip@main_value")    # a FRI column, a main branch, a row of a
 #                                      spot check (its main value)
 RANK_TIMEOUT_S = 600
+# the sharded NTT in each world: (points, inverse)
+NTT_SHARDED = [(1 << 16, False), (1 << 16, True), (1 << 20, False),
+               (1 << 20, True)]
 
 
 def run_world(what, n, steps, **kw):
@@ -1718,6 +1868,28 @@ def rank_results(what, ranks, i, want, kernels, idle=()):
         f"{[steps[i]['launches'] for steps in ranks]}")
 
 
+def sharded_ntt_results(what, ranks, i, nums):
+    """Step i of every rank (rank_checks.sharded_ntt): each rank's slice and
+    the gathered result equal the one-process ntt, and the rank launched
+    the stage kernel."""
+    for rank, steps in enumerate(ranks):
+        for rec in steps[i]["result"]:
+            if not (rec["slice_equal"] and rec["gathered_equal"]):
+                fail(f"ranks [{what}]: rank {rank}: the sharded NTT of "
+                     f"{rec['n']} points (inverse {rec['inverse']}) differs "
+                     f"from the one-process ntt")
+        require_launches(f"{what} (rank {rank})", steps[i]["launches"],
+                         ("ntt_stage",))
+    secs = {f"{r['n']}{'_inverse' if r['inverse'] else ''}":
+            [steps[i]["result"][j]["seconds"] for steps in ranks]
+            for j, r in enumerate(ranks[0][i]["result"])}
+    nums[f"sharded_ntt_seconds_{what}"] = secs
+    log(f"ranks [{what}]: sharded NTT at 2^16 and 2^20, forward and "
+        f"inverse: every rank's slice and the gathered result equal the "
+        f"one-process ntt; seconds a call by rank {json.dumps(secs)}; "
+        f"launches by rank {[steps[i]['launches'] for steps in ranks]}")
+
+
 def rank_phase(cfg, blob, want, kinds, names):
     """Phase 10.  (a) device_count ranks over NCCL: the sharded verifier on
     the 1,024-proof batch of phase 5.  (b) two ranks on one card over gloo:
@@ -1736,9 +1908,11 @@ def rank_phase(cfg, blob, want, kinds, names):
 
     ranks, nums["nccl_startup_s"] = run_world(
         f"nccl x {n_cards}", n_cards,
-        [(R.sharded_batch, dict(batch, per_host=True))], devices="cuda")
+        [(R.sharded_batch, dict(batch, per_host=True)),
+         (R.sharded_ntt, dict(cases=NTT_SHARDED))], devices="cuda")
     rank_results(f"nccl x {n_cards}: sharded verifier, batch {BATCH}", ranks,
                  0, want_batch, SHARED_KERNELS)
+    sharded_ntt_results(f"nccl_x_{n_cards}", ranks, 1, nums)
 
     blobs = {k: v[0] for k, v in kinds.items()}
     oracle_verdicts = [kinds[k][1] for k in names]
@@ -1756,6 +1930,7 @@ def rank_phase(cfg, blob, want, kinds, names):
         (R.point, dict(k, names=list(POINT_KINDS))),
         (R.time_resident, dict(k, kind="golden", batch=BATCH, turns=3)),
         (R.time_point, dict(k, kind="golden", reps=5)),
+        (R.sharded_ntt, dict(cases=NTT_SHARDED)),
     ]
     ranks, nums["gloo_startup_s"] = run_world(
         "gloo x 2 on one card", 2, steps, devices="cuda", backend="gloo")
@@ -1771,6 +1946,7 @@ def rank_phase(cfg, blob, want, kinds, names):
         fail(f"the oracle's verdicts on the point kinds: {point_want}")
     rank_results("gloo x 2: point parallelism", ranks, 4, point_want,
                  POINT_KERNELS, idle=("walk_leaf_levels", "walk_quads"))
+    sharded_ntt_results("gloo_x_2", ranks, 7, nums)
 
     # (c) the numbers, each rank's seconds between barriers
     res = [steps[5]["result"] for steps in ranks]
@@ -1813,6 +1989,119 @@ def rank_phase(cfg, blob, want, kinds, names):
     nums["cli_bench_devices"] = lines
     for key, value in nums.items():
         log(f"ranks {key}: {json.dumps(value)}")
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the standalone NTT, the MiMC scan and debug mode
+# ---------------------------------------------------------------------------
+
+def horner(vals, x):
+    acc = 0
+    for c in reversed(vals):
+        acc = (acc * x + c) % P
+    return acc
+
+
+def ntt_mimc_debug_phase(cfg, tree, want, kernels):
+    """Phase 12.  The standalone NTT through ops/ntt.ntt (counted: one stage
+    launch a stage, no kernel E), against the oracle's FFT at 2^13, a round
+    trip and one output point against a Horner evaluation on the host at
+    2^20, and `bench --ntt 13 20` as a subprocess; the MiMC scan through the
+    family's compute_output (counted), against the oracle on 16 inputs and
+    the known output of input 3, and its time for 1 and 1,024 inputs; a
+    STARK_DEBUG=1 pass of the first 16 proofs of phase 5, and a violation
+    that raises."""
+    n = 1 << 20
+    rng = np.random.RandomState(20)
+    host = rng.randint(0, 1 << 16, (n, 16)).astype(np.int32)
+    host[:, -1] %= 0xFFFF                             # canonical values
+    x = torch.from_numpy(host).to(DEV)
+    y, counts = counted(lambda: ntt.ntt(x, ntt_root(n)))
+    if counts["ntt_stage"] != 20 or counts["mul_mod"] != 0:
+        fail(f"ntt at 2^20 launched the stage kernel {counts['ntt_stage']} "
+             f"times and kernel E {counts['mul_mod']} times, expected 20 "
+             f"and 0")
+    for k in kernels:
+        if k["name"] == "ntt_stage":
+            k["launches"], k["launches_on"] = (counts["ntt_stage"],
+                                               "ops/ntt.ntt, 2^20 points")
+    back = ntt.intt(y, ntt_root(n))
+    if not torch.equal(back, x):
+        fail("intt(ntt(x)) at 2^20 is not x")
+    vals = [fp.limbs_to_int(r) for r in host.astype(np.uint32)]
+    at = 777777
+    if fp.limbs_to_int(y[at].cpu().numpy().astype(np.uint32)) != horner(
+            vals, pow(ntt_root(n), at, P)):
+        fail(f"ntt at 2^20: point {at} differs from its Horner evaluation")
+    m = 1 << 13
+    small = [v % P for v in vals[:m]]
+    got = ntt.ntt(limbs_on_card(small), ntt_root(m)).cpu().numpy()
+    if [fp.limbs_to_int(r) for r in got.astype(np.uint32)] != \
+            oracle.fft_fwd(small, ntt_root(m)):
+        fail("ntt at 2^13 differs from the oracle's FFT")
+    log(f"ntt: 2^20 forward in {counts['ntt_stage']} stage launches (no "
+        f"kernel E), the round trip exact, point {at} equal to its Horner "
+        f"evaluation; 2^13 equal to the oracle's FFT")
+
+    rec, _ = run_json(["stark_verifier_tpu_torch.bench", "--ntt", "13", "20"],
+                      "bench --ntt 13 20", timeout=600)
+    sizes = (rec or {}).get("sizes", {})
+    if sorted(sizes) != sorted(f"2^{k}" for k in range(13, 21)) or not all(
+            r["ms"] > 0 and r["Melem_per_s"] > 0 for r in sizes.values()):
+        fail(f"bench --ntt 13 20 printed {rec}")
+
+    c = limbs_on_card([(i ** 7) ^ 42 for i in range(cfg.num_constants)])
+    out, counts = counted(lambda: MimcStatement(cfg).compute_output(
+        3, device=DEV))
+    if counts["mimc_scan"] != 1:
+        fail(f"compute_output launched the scan kernel {counts['mimc_scan']} "
+             f"times, expected once")
+    for k in kernels:
+        if k["name"] == "mimc_scan":
+            k["launches"], k["launches_on"] = (counts["mimc_scan"],
+                                               "MimcStatement.compute_output")
+    if fp.limbs_to_int(out.cpu().numpy().astype(np.uint32)) != MIMC_OUT_3:
+        fail("compute_output(3) is not the known MiMC output of input 3")
+    inputs = [3, 0, 1, P - 1, P, 2**256 - 1] + [7 ** k for k in range(10)]
+    got = mimc.mimc(limbs_on_card(inputs), MIMC_STEPS, c).cpu().numpy()
+    consts = [(i ** 7) ^ 42 for i in range(cfg.num_constants)]
+    if [fp.limbs_to_int(r) for r in got.astype(np.uint32)] != [
+            oracle.mimc(v, MIMC_STEPS, consts) for v in inputs]:
+        fail("the MiMC scan at 8,192 steps differs from the oracle")
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(8192)
+    many = rand_limbs(gen, (1024,))
+    scan_ms = {f"{k}_inputs": time_ms(lambda: mimc.mimc(many[:k], MIMC_STEPS,
+                                                       c), 5)
+               for k in (1, 1024)}
+    log(f"mimc: compute_output(3) = the known output; 16 inputs equal the "
+        f"oracle's at {MIMC_STEPS} steps; ms a scan of {MIMC_STEPS} steps "
+        f"{json.dumps(scan_ms)}")
+
+    head = dev_io.tree_map(lambda t: t[:16], tree)
+    before = os.environ.get("STARK_DEBUG")
+    os.environ["STARK_DEBUG"] = "1"
+    try:
+        fn, _ = V.make_verifier(cfg, 3, device=DEV)
+        t0 = time.perf_counter()
+        expect_verdicts("STARK_DEBUG=1, the first 16 proofs", fn(head),
+                        want[:16])
+        secs = time.perf_counter() - t0
+        bad = limbs_on_card(5)
+        bad[3] = 0x2000F
+        try:
+            F.add_mod(limbs_on_card(5), bad)
+            fail("STARK_DEBUG=1: a limb of 0x2000F did not raise")
+        except ValueError as e:
+            if "limb invariant" not in str(e):
+                raise
+    finally:
+        if before is None:
+            os.environ.pop("STARK_DEBUG", None)
+        else:
+            os.environ["STARK_DEBUG"] = before
+    log(f"debug: STARK_DEBUG=1 verdicts of the first 16 proofs equal the "
+        f"main path's ({secs:.2f} s a call); a wide limb raises")
 
 
 def main():
@@ -1864,6 +2153,7 @@ def main():
     strict_phase(cfg, blob, tree_np)
     kinds, names = stream_phase(cfg, blob, tree_np, consts, out)
     rank_phase(cfg, blob, want, kinds, names)
+    ntt_mimc_debug_phase(cfg, tree, want, kernels)
     for k in kernels:
         if k["launches"] <= 0:
             fail(f"kernel {k['name']} was launched on none of the paths")

@@ -62,6 +62,15 @@ class FriRowsArgs(ctypes.Structure):
                 ("ginv", ctypes.c_uint32 * 8), ("inv4", ctypes.c_uint32 * 8)]
 
 
+class NttStageArgs(ctypes.Structure):
+    """The operands of one NTT stage (csrc/ntt_stage.cu, struct
+    stark_ntt_stage_args: the same fields in the same order)."""
+    _fields_ = [("src", _p), ("perm", _p), ("tw", _p), ("scale", _p),
+                ("dst", _p), ("lead", _ll), ("n", _ll), ("src_n", _ll),
+                ("half", _ll), ("tw_rows", _ll), ("tw_stride", _ll),
+                ("tw_off", _ll), ("src_limbs", _i), ("dst_limbs", _i)]
+
+
 _groups = ctypes.POINTER(WalkGroup)
 # C entry points: every pointer and the stream are c_void_p (a bare Python
 # int would be passed as a 32-bit int and cut the pointer)
@@ -72,6 +81,8 @@ SIGNATURES = {
     "stark_spot_checks": [ctypes.POINTER(SpotArgs), _p],
     "stark_mul_mod": [_p, _ll, _p, _ll, _p, _ll, _p],
     "stark_walk_branches_groups": [_groups, _i, _p],
+    "stark_ntt_stage": [ctypes.POINTER(NttStageArgs), _p],
+    "stark_mimc_scan": [_p, _p, _ll, _ll, _i, _p, _ll, _p],
 }
 
 _state = {"lib": None, "seconds": None, "log": ""}

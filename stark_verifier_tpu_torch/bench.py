@@ -3,6 +3,7 @@
     python -m stark_verifier_tpu_torch.bench PROOF [BATCH ITERS]
     python -m stark_verifier_tpu_torch.bench PROOF --stream [N CHUNK]
         [--device-parse]
+    python -m stark_verifier_tpu_torch.bench --ntt [LO HI]
 
 (plus --log-steps L for a proof of another family, and --device; the
 default device is the card, and without one the bench raises.)
@@ -16,6 +17,14 @@ proof's bytes (parse included).  Stream mode verifies N (default 4,096)
 distinct byte blobs in chunks of CHUNK (default 512) through
 parallel.mesh.verify_stream: parse -> host-to-device copy -> verify, or with
 --device-parse pack -> one copy -> parse on the device -> verify.
+
+NTT mode (the counterpart of the JAX package's tools/bench_ntt.py) times
+the standalone n-point NTT (ops/ntt.ntt) for n = 2^LO .. 2^HI (default 13
+to 20) on seeded values resident on the device: for each size a line with
+ms a transform (the device synchronized around the timed calls; nothing is
+copied to the host), Melem/s, the seconds to build the host twiddle tables
+and the kernel launches a transform; then one JSON line with every size and
+the card's name and power limit.
 
 Prints ONE JSON line on stdout (batch mode: the BenchReport on stderr too):
   {"metric": ..., "value": N, "unit": ..., "vs_baseline": N, ...}
@@ -146,21 +155,87 @@ def bench_batch(proof_bytes: bytes, batch: int, iters: int, cfg, dev) -> dict:
     }
 
 
+def _card_line() -> str:
+    """The card's name and power limit as nvidia-smi prints them."""
+    import subprocess
+
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], check=True, capture_output=True,
+            text=True, timeout=60).stdout
+    except (OSError, subprocess.SubprocessError) as e:
+        return f"not read ({e.__class__.__name__})"
+    return out.strip().splitlines()[0]
+
+
+def bench_ntt(lo: int, hi: int, dev) -> dict:
+    """ms a transform, Melem/s, host table seconds and launches a transform
+    of ops/ntt.ntt at 2^lo .. 2^hi points."""
+    from . import fp
+    from .ops import field_cuda, ntt
+
+    P = fp.MODULUS
+    sizes = {}
+    for logn in range(lo, hi + 1):
+        n = 1 << logn
+        root = pow(7, (P - 1) // n, P)
+        rng = np.random.RandomState(logn)
+        limbs = rng.randint(0, 1 << 16, (n, fp.NLIMBS)).astype(np.int32)
+        limbs[:, -1] %= 0xFFFF                    # canonical values, < p
+        x = torch.from_numpy(limbs).to(dev)
+        t0 = time.perf_counter()
+        if dev.type == "cuda":
+            ntt._card_tables(root, n, P, str(x.device))
+        else:
+            ntt._twiddle_stages(root, n, P)
+        tables_s = time.perf_counter() - t0
+        counts = (ntt.launches["ntt_stage"], field_cuda.launches["mul_mod"])
+        ntt.ntt(x, root)                          # warm
+        launches = (ntt.launches["ntt_stage"] - counts[0]
+                    + field_cuda.launches["mul_mod"] - counts[1])
+        iters = max(3, min(50, (1 << 24) // n))
+        _sync(dev)
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            ntt.ntt(x, root)
+        _sync(dev)
+        dt = (time.perf_counter() - t0) / iters
+        sizes[f"2^{logn}"] = {"ms": dt * 1e3, "Melem_per_s": n / dt / 1e6,
+                              "tables_s": tables_s, "launches": launches,
+                              "iters": iters}
+        print(f"2^{logn:2d}: {dt * 1e3:9.4f} ms  {n / dt / 1e6:9.1f} Melem/s"
+              f"  tables {tables_s:.3f} s  {launches} launches a transform",
+              flush=True)
+    return {"metric": "standalone NTT (ops/ntt.ntt, forward)",
+            "sizes": sizes, "device": _device_name(dev),
+            "card": _card_line() if dev.type == "cuda" else "cpu"}
+
+
 def main(argv=None):
     from .config import StarkConfig
     from .proofio import device
 
     ap = argparse.ArgumentParser(prog="stark_verifier_tpu_torch.bench")
-    ap.add_argument("proof", help="path to a serialized proof")
+    ap.add_argument("proof", nargs="?", help="path to a serialized proof")
     ap.add_argument("numbers", nargs="*", type=int,
                     help="BATCH ITERS, or with --stream N CHUNK")
     ap.add_argument("--stream", action="store_true")
+    ap.add_argument("--ntt", nargs="*", type=int, metavar="LOG",
+                    help="NTT mode: log2 of the first and last size "
+                    "(default 13 20)")
     ap.add_argument("--device-parse", action="store_true")
     ap.add_argument("--log-steps", type=int, default=13)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card)")
     args = ap.parse_intermixed_args(argv)
     dev = device.resolve_device(args.device)
+    if args.ntt is not None:
+        lo, hi = (args.ntt + [13, 20][len(args.ntt):])[:2]
+        print(json.dumps(bench_ntt(lo, hi, dev)))
+        return
+    if args.proof is None:
+        ap.error("a proof is needed (or --ntt)")
     cfg = StarkConfig(log_steps=args.log_steps)
     with open(args.proof, "rb") as f:
         proof_bytes = f.read()

@@ -12,9 +12,15 @@
 //   probe_eval4_special_x  kernel C, one (proof, level): special_x's
 //                          canonicalization, once;
 //   probe_spot3 / 2        kernel D, one position (its four parts);
-//   probe_mul              kernel E, one element.
+//   probe_mul              kernel E, one element;
+//   probe_butterfly        the NTT stage, one pair: a product, an add and
+//                          a subtract (the inverse's last stage adds two
+//                          products, counted apart as probe_mul);
+//   probe_mimc3 / 2        the MiMC scan, one round.
 #include "../field_mul.cu"
 #include "../fri_rows.cu"
+#include "../mimc_scan.cu"
+#include "../ntt_stage.cu"
 #include "../spot_checks.cu"
 
 #define PROBE_STRIDE 16  // field elements of input a thread
@@ -72,4 +78,22 @@ extern "C" __global__ void probe_spot2(const fe* in, uint32_t* out) {
 extern "C" __global__ void probe_mul(const fe* in, fe* out) {
   const fe* v = in + threadIdx.x * PROBE_STRIDE;
   out[threadIdx.x] = fe_mul(v[0], v[1]);
+}
+
+extern "C" __global__ void probe_butterfly(const fe* in, fe* out) {
+  const fe* v = in + threadIdx.x * PROBE_STRIDE;
+  fe lo, hi;
+  stark_butterfly(v[0], v[1], v[2], lo, hi);
+  out[2 * threadIdx.x] = lo;
+  out[2 * threadIdx.x + 1] = hi;
+}
+
+extern "C" __global__ void probe_mimc3(const fe* in, fe* out) {
+  const fe* v = in + threadIdx.x * PROBE_STRIDE;
+  out[threadIdx.x] = stark_mimc_round<3>(v[0], v[1]);
+}
+
+extern "C" __global__ void probe_mimc2(const fe* in, fe* out) {
+  const fe* v = in + threadIdx.x * PROBE_STRIDE;
+  out[threadIdx.x] = stark_mimc_round<2>(v[0], v[1]);
 }

@@ -2,6 +2,9 @@
 
 from __future__ import annotations
 
+import numpy as np
+import torch
+
 from ..config import StarkConfig
 from ..ops import field as F, mimc as mimc_ops
 from ..proofio.device import resolve_device
@@ -33,13 +36,14 @@ class StatementFamily:
 
     def compute_output(self, inp: int, device=None):
         """The claimed trace output for input `inp` as [16] limbs on
-        `device` (computed on the host in exact integers)."""
+        `device`: the MiMC scan on the device (ops/mimc.mimc; on the card
+        one launch of the scan kernel), as the JAX families compute it."""
         cfg = self._cfg
-        out = mimc_ops.mimc_host(
-            inp, cfg.num_steps,
-            constants=[(i ** 7) ^ 42 for i in range(cfg.num_constants)],
-            power=cfg.power)
-        return F.const(out, resolve_device(device))
+        dev = resolve_device(device)
+        consts = torch.from_numpy(
+            self.round_constants().astype(np.int32)).to(dev)
+        return mimc_ops.mimc(F.const(inp, dev), cfg.num_steps, consts,
+                             power=cfg.power)
 
     def make_verifier(self, inp: int = 3, shared_merkle: bool = True,
                       device=None):

@@ -25,6 +25,10 @@ ops/field_cuda.mul_mod, which launches the kernel for a CUDA tensor and runs
 the plain version for a CPU tensor.  The plain versions of the other kernels
 call field_cuda.mul_mod_plain directly, so that none of them is built on a
 kernel.  mul_sum_mod has no kernel and is plain torch on either device.
+The exponentiations and inversions (pow_const, pow2k, inv_mod, pow_table,
+batch_inv) are plain torch whose products go through mul_mod.  With
+STARK_DEBUG=1 (debug.py) add_mod, sub_mod and mul_sum_mod check that their
+operands' limbs are 16-bit values, and the reduction checks its output.
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .. import fp
+from .. import debug, fp
 
 NLIMBS = fp.NLIMBS
 MASK = fp.LIMB_MASK
@@ -151,6 +155,8 @@ def add_mod(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(a + b) mod p for canonical inputs: s = a + b and u = s + C; s >= p
     <=> u >= 2^256 <=> u's carry-out limb is set, in which case the answer is
     u's low limbs (s + C - 2^256 = s - p)."""
+    debug.check_limbs(a, "add_mod lhs")
+    debug.check_limbs(b, "add_mod rhs")
     a, b = torch.broadcast_tensors(a, b)
     raw = [x + y for x, y in zip(_cols(a), _cols(b))]
     s = _carry(raw, NLIMBS + 1)
@@ -163,6 +169,8 @@ def sub_mod(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     r0 = a + ~b + 1 (= a - b + 2^256; carry-out limb set iff a >= b) and
     r1 = a + ~b + ~C + 2 (= a - b + p + 2^256; its low limbs are a - b + p,
     the a < b answer)."""
+    debug.check_limbs(a, "sub_mod lhs")
+    debug.check_limbs(b, "sub_mod rhs")
     a, b = torch.broadcast_tensors(a, b)
     base = [x + (MASK - y) for x, y in zip(_cols(a), _cols(b))]
     r0 = list(base)
@@ -222,7 +230,9 @@ def _reduce_cols(cols: list, canonical: bool = True) -> torch.Tensor:
         limbs = _fold_once(limbs)
     v = limbs[:NLIMBS]
     u = _carry(_add_c(v), NLIMBS + 1)
-    return _limbs(_select(u[NLIMBS] > 0, u[:NLIMBS], v))
+    r = _limbs(_select(u[NLIMBS] > 0, u[:NLIMBS], v))
+    debug.check_limbs(r, "_reduce_cols canonical output")
+    return r
 
 
 def mul_mod(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -260,6 +270,11 @@ def mul_sum_mod(pairs, extra=()) -> torch.Tensor:
         raise ValueError(
             f"mul_sum_mod exactness bound: 1 <= n_pairs <= 16 (got {n}), "
             f"n_extra <= 8 (got {len(extra)})")
+    for a, b in pairs:
+        debug.check_limbs(a, "mul_sum_mod lhs")
+        debug.check_limbs(b, "mul_sum_mod rhs")
+    for t in extra:
+        debug.check_limbs(t, "mul_sum_mod extra")
     acc = _mul_acc(*pairs[0])
     for a, b in pairs[1:]:
         acc = acc + _mul_acc(a, b)
@@ -268,6 +283,129 @@ def mul_sum_mod(pairs, extra=()) -> torch.Tensor:
         t64 = _cols(t)
         cols = [c + t64[i] if i < NLIMBS else c for i, c in enumerate(cols)]
     return _reduce_cols(cols)
+
+
+def neg_mod(a: torch.Tensor) -> torch.Tensor:
+    """(-a) mod p for canonical input."""
+    return sub_mod(torch.zeros_like(a), a)
+
+
+# ---------------------------------------------------------------------------
+# Exponentiation and inversion (products through mul_mod: on the card the
+# element-wise multiply kernel, one launch a product)
+# ---------------------------------------------------------------------------
+
+def _one_like(shape, device) -> torch.Tensor:
+    return const(1, device).expand(tuple(shape)).clone()
+
+
+def pow_const(x: torch.Tensor, e: int) -> torch.Tensor:
+    """x^e mod p for a host exponent (square-and-multiply from the top bit;
+    e = 1 returns x as it is, e = 0 the limbs of 1)."""
+    if e == 0:
+        return _one_like(x.shape, x.device)
+    r = x
+    for bit in bin(e)[3:]:
+        r = sqr_mod(r)
+        if bit == "1":
+            r = mul_mod(r, x)
+    return r
+
+
+def pow2k(x: torch.Tensor, k: int) -> torch.Tensor:
+    """x^(2^k) mod p: k squarings (x itself for k = 0)."""
+    for _ in range(k):
+        x = sqr_mod(x)
+    return x
+
+
+def inv_mod(x: torch.Tensor) -> torch.Tensor:
+    """x^(p-2) mod p (Fermat); maps 0 to 0, as the reference's inverse does
+    at its call sites (src/utils.rs:139-167).
+
+    The JAX package's addition chain for the sparse prime: p - 2 is, in
+    binary, 215 ones, 010100000, 32 ones; the blocks x^(2^k - 1) of a
+    doubling ladder cover the runs of ones, so the chain costs 255
+    squarings and 15 products."""
+    x = canon(x)
+
+    def sm(r, k, t):
+        return mul_mod(pow2k(r, k), t)     # r^(2^k) * t
+
+    r1 = x
+    r2 = sm(r1, 1, r1)                     # x^(2^2 - 1)
+    r4 = sm(r2, 2, r2)
+    r8 = sm(r4, 4, r4)
+    r16 = sm(r8, 8, r8)
+    r32 = sm(r16, 16, r16)
+    r64 = sm(r32, 32, r32)
+    r128 = sm(r64, 64, r64)
+    u = sm(r128, 64, r64)                  # x^(2^192 - 1)
+    u = sm(u, 16, r16)                     # 208 ones
+    u = sm(u, 4, r4)                       # 212
+    u = sm(u, 2, r2)                       # 214
+    u = sm(u, 1, r1)                       # x^(2^215 - 1)
+    # the tail block: 2^224 - 352 = (2^215 - 1) * 2^9 + 160, 160 = 0b010100000
+    u = sqr_mod(u)
+    u = mul_mod(sqr_mod(u), x)
+    u = sqr_mod(u)
+    u = mul_mod(sqr_mod(u), x)
+    u = pow2k(u, 5)                        # x^(2^224 - 352)
+    # the low word: (2^224 - 352) * 2^32 + (2^32 - 1) = p - 2
+    return sm(u, 32, r32)
+
+
+def pow_table(table: torch.Tensor, e: torch.Tensor, nbits: int) -> torch.Tensor:
+    """base^e with table[i] = base^(2^i) (fp.pow2_table): table [nbits, 16],
+    e [...] int32 exponents (uint32 bit patterns, < 2^nbits); [..., 16].
+    One product a bit, kept where the bit is set."""
+    r = _one_like(tuple(e.shape) + (NLIMBS,), e.device)
+    for i in range(nbits):
+        bit = ((e >> i) & 1).bool()[..., None]
+        r = torch.where(bit, mul_mod(r, table[i]), r)
+    return r
+
+
+def _scan_products(v: torch.Tensor, reverse: bool) -> torch.Tensor:
+    """Inclusive product scan of [..., n, 16] along -2 (reverse: from the
+    end), by doubling: log2(n) rounds of one product each.  Element 0 (n - 1
+    when reversed) stays as it is, as in the JAX package's associative
+    scan; every other is a canonical product, the same residue whatever the
+    order."""
+    if reverse:
+        return _scan_products(v.flip(-2), False).flip(-2)
+    n = v.shape[-2]
+    d = 1
+    while d < n:
+        v = torch.cat([v[..., :d, :], mul_mod(v[..., d:, :], v[..., :-d, :])],
+                      dim=-2)
+        d *= 2
+    return v
+
+
+def batch_inv(v: torch.Tensor, axis: int = -2) -> torch.Tensor:
+    """Invert many field elements with one Fermat inversion (Montgomery's
+    trick; reference: src/utils.rs:169-194).
+
+    v: [..., n, 16] canonical values along `axis` (default the second to
+    last).  Zeros map to 0 (the reference's multi_inv).  Inclusive prefix
+    and suffix product scans: inv_i = prefix_(i-1) * suffix_(i+1) *
+    inv(total)."""
+    if axis != -2:
+        v = v.movedim(axis, -2)
+    is_zero = (v == 0).all(dim=-1, keepdim=True)
+    vv = torch.where(is_zero, _one_like(v.shape, v.device), v)
+    pre = _scan_products(vv, reverse=False)
+    suf = _scan_products(vv, reverse=True)
+    itot = inv_mod(pre[..., -1, :])
+    one = _one_like(v.shape[:-2] + (1, NLIMBS), v.device)
+    pre_excl = torch.cat([one, pre[..., :-1, :]], dim=-2)
+    suf_excl = torch.cat([suf[..., 1:, :], one], dim=-2)
+    out = mul_mod(mul_mod_lazy(pre_excl, suf_excl), itot[..., None, :])
+    out = torch.where(is_zero, torch.zeros_like(out), out)
+    if axis != -2:
+        out = out.movedim(-2, axis)
+    return out
 
 
 # ---------------------------------------------------------------------------

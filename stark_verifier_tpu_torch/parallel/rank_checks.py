@@ -17,6 +17,7 @@ a few megabytes to send; each rank parses a kind once.
 
 from __future__ import annotations
 
+import ctypes
 import statistics
 import time
 
@@ -24,13 +25,17 @@ import torch
 import torch.distributed as dist
 
 from ..config import StarkConfig
-from ..ops import field_cuda, fri_cuda, merkle_cuda, spot_cuda
+import numpy as np
+
+from .. import _build, fp
+from ..ops import field_cuda, fri_cuda, merkle_cuda, mimc, ntt, spot_cuda
 from ..proofio import device as pdevice
 from ..proofio import wire
 from ..protocol import verify as V
 from . import mesh as M
+from . import ntt as pntt
 
-KERNEL_MODULES = (merkle_cuda, fri_cuda, spot_cuda, field_cuda)
+KERNEL_MODULES = (merkle_cuda, fri_cuda, spot_cuda, field_cuda, ntt, mimc)
 
 
 def _sync(mesh: M.Mesh) -> None:
@@ -246,4 +251,53 @@ def time_point(mesh: M.Mesh, cfg: StarkConfig, kinds: dict, kind: str,
                 samples[name].append(s)
     out = {k + "_s": v for k, v in samples.items()}
     out.update({k: statistics.median(v) for k, v in samples.items() if v})
+    return out
+
+
+def ntt_values(n: int, seed: int) -> np.ndarray:
+    """[n, 16] uint32 limbs made from a seed, the same on every rank: raw
+    values below 2^256 (not all canonical), the first ones 0, p - 1, p,
+    p + 1 and 2^256 - 1."""
+    rng = np.random.RandomState(seed)
+    v = rng.randint(0, 1 << 16, (n, fp.NLIMBS)).astype(np.uint32)
+    edges = [0, fp.MODULUS - 1, fp.MODULUS, fp.MODULUS + 1, 2**256 - 1]
+    k = min(n, len(edges))
+    v[:k] = fp.ints_to_limbs(edges[:k])
+    return v
+
+
+def sharded_ntt(mesh: M.Mesh, cases, seed: int = 0, values: bool = False,
+                host_lib: str | None = None) -> list:
+    """For each (n, inverse) of `cases`: the sharded NTT of ntt_values(n,
+    seed + n) on every rank, held against the one-process ntt of the same
+    values on this rank's device.  A record a case: "slice_equal" (this
+    rank's slice), "gathered_equal" (gather_points' whole result),
+    "seconds" (one call after a warm one), and with `values` the gathered
+    result as uint32 limbs.  host_lib: the path of a host build of
+    csrc/ntt_stage.cu, through which CPU ranks take the kernel path."""
+    lib = None
+    if host_lib is not None:
+        lib = ctypes.CDLL(host_lib)
+        lib.stark_ntt_stage.argtypes = _build.SIGNATURES["stark_ntt_stage"]
+    out = []
+    for n, inverse in cases:
+        host = ntt_values(n, seed + n)
+        x = torch.from_numpy(host.view(np.int32)).to(mesh.device)
+        root = pow(7, (fp.MODULUS - 1) // n, fp.MODULUS)
+        fn = pntt.make_sharded_ntt(n, root, mesh, inverse=inverse, lib=lib)
+        fn(x)                                           # warm
+        _sync(mesh)
+        t0 = time.perf_counter()
+        local = fn(x)
+        _sync(mesh)
+        secs = time.perf_counter() - t0
+        whole = pntt.gather_points(mesh, local)
+        want = ntt.ntt(x, root, inverse=inverse)
+        lo, hi = M.part_bounds(n, mesh)
+        rec = {"n": n, "inverse": inverse, "seconds": secs,
+               "slice_equal": bool(torch.equal(local, want[lo:hi])),
+               "gathered_equal": bool(torch.equal(whole, want))}
+        if values:
+            rec["values"] = whole.cpu().numpy().view(np.uint32)
+        out.append(rec)
     return out

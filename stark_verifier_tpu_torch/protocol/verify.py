@@ -12,8 +12,8 @@ every proof of a batch through the same fixed-shape tensor program:
   * FRI rows: one kernel over all levels and queries, from the proof's
     rows and roots to a verdict a query                   (ops/fri_cuda.py)
   * 80 constraint spot checks: one kernel                (ops/spot_cuda.py)
-  * runtime round constants: an iNTT whose products are the element-wise
-    multiply kernel                          (ops/ntt.py, ops/field_cuda.py)
+  * runtime round constants: an iNTT, one launch of the butterfly-stage
+    kernel a stage                                          (ops/ntt.py)
 
 Every assert of the reference becomes a boolean lane; the proof verdict is
 their AND, so a batch returns per-proof verdicts instead of panicking.
@@ -30,6 +30,10 @@ their plain PyTorch versions.  Ragged proofs (per-branch witness depths, or
 witness arrays padded deeper than the depths) verify with
 shared_merkle=False; routed to the shared walk they reject through its
 uniform-depth guard, never misverify.
+
+With STARK_DEBUG=1 (debug.py) the FRI column indices and the spot-check
+positions are bounds-checked before kernels C and D take them, and the
+verifiers the makers return synchronize the device after each call.
 """
 
 from __future__ import annotations
@@ -40,7 +44,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from .. import fp
+from .. import debug, fp
 from ..config import StarkConfig, StatementTables, cached_tables
 from ..ops import blake2s, field as F, fri_cuda, merkle, mimc as mimc_ops
 from ..ops import ntt, prg, spot_cuda
@@ -122,6 +126,7 @@ def _fri_checks(l_root_words, fri, tables, cfg: StarkConfig,
     if ys is None:
         ys = prg.pseudorandom_indices(root2, q, mod_b,
                                       cfg.extension_factor)  # [..., L, q]
+    debug.check_bounds(ys, cfg.precision // 4 + 1, "fri column indices")
 
     # column branches verify against the proof's own embedded root2
     # (merkle_tree.rs:30-33 trust quirk); each level's walk covers EXACTLY
@@ -334,6 +339,7 @@ def verify_mimc_proof(tree, inp, output_limbs, tables, cfg: StarkConfig,
     positions = prg.indices_from_entries(
         entries[..., -1, :ns, :], cfg.spot_checks, cfg.precision,
         cfg.extension_factor)                              # [..., 80] int64
+    debug.check_bounds(positions, cfg.precision, "spot-check positions")
     aug = torch.stack(
         [positions, (positions + cfg.skips) % cfg.precision], dim=-1)
     augmented = aug.reshape(*aug.shape[:-2], cfg.spot_checks * 2)  # interleaved
@@ -534,8 +540,10 @@ def make_verifier(cfg: StarkConfig | None = None, inp: int = 3,
     there is none.  MEMOIZED on (cfg, inp, shared_merkle, device): the tables
     cost seconds of host time and are copied to the device once.
     """
-    return _make_verifier_cached(cfg or StarkConfig(), inp, shared_merkle,
-                                 str(resolve_device(device)))
+    fn, tables = _make_verifier_cached(cfg or StarkConfig(), inp,
+                                       shared_merkle,
+                                       str(resolve_device(device)))
+    return debug.checked(fn), tables
 
 
 @functools.lru_cache(maxsize=16)
@@ -553,8 +561,10 @@ def make_chunked_verifier(cfg: StarkConfig | None = None, inp: int = 3,
     the level-parallel FRI check for arbitrarily large batches.  Batch must
     be a multiple of `chunk` (pad with any proof and ignore the verdicts).
     Memoized like make_verifier."""
-    return _make_chunked_cached(cfg or StarkConfig(), inp, chunk,
-                                shared_merkle, str(resolve_device(device)))
+    fn, tables = _make_chunked_cached(cfg or StarkConfig(), inp, chunk,
+                                      shared_merkle,
+                                      str(resolve_device(device)))
+    return debug.checked(fn), tables
 
 
 @functools.lru_cache(maxsize=16)
@@ -575,8 +585,9 @@ def make_general_verifier(cfg: StarkConfig | None = None,
     (see GeneralMimcVerifier).  The modulus stays fixed: the limb arithmetic
     is specialized to p = 2^256 - 351*2^32 + 1.  Memoized like make_verifier.
     """
-    return _make_general_cached(cfg or StarkConfig(), shared_merkle,
-                                str(resolve_device(device)))
+    fn, tables = _make_general_cached(cfg or StarkConfig(), shared_merkle,
+                                      str(resolve_device(device)))
+    return debug.checked(fn), tables
 
 
 @functools.lru_cache(maxsize=16)

@@ -154,6 +154,21 @@ def test_bench_module_json_lines(files, capsys, monkeypatch):
         bench.main([str(files["flipped"]), "--stream", "2", "2", *CPU9])
 
 
+def test_bench_ntt_mode(capsys):
+    """--ntt LO HI: a line a size, then one JSON line with ms, Melem/s,
+    table seconds and launches a transform for every size; no proof
+    needed, and without --ntt one is."""
+    bench.main(["--ntt", "3", "4", "--device", "cpu"])
+    lines = capsys.readouterr().out.strip().splitlines()
+    rec = json.loads(lines[-1])
+    assert len(lines) == 3 and sorted(rec["sizes"]) == ["2^3", "2^4"]
+    assert all(r["ms"] > 0 and r["Melem_per_s"] > 0 and r["tables_s"] >= 0
+               and r["launches"] == 0 for r in rec["sizes"].values())
+    assert rec["device"] == "cpu" and rec["card"] == "cpu"
+    with pytest.raises(SystemExit):
+        bench.main(["--device", "cpu"])
+
+
 @pytest.mark.parametrize("log_steps", [9, 11, 13])
 def test_compressions_per_proof_equal_jax(log_steps):
     assert profiling.compressions_per_proof(StarkConfig(log_steps=log_steps)) \

@@ -21,7 +21,8 @@ import torch
 from stark_verifier_tpu_torch import _build, fp
 from stark_verifier_tpu_torch.config import StarkConfig, cached_tables
 from stark_verifier_tpu_torch.ops import (
-    blake2s, field as F, field_cuda, fri_cuda, merkle_cuda, spot_cuda)
+    blake2s, field as F, field_cuda, fri_cuda, merkle_cuda, mimc, ntt,
+    spot_cuda)
 
 torch.set_num_threads(1)
 P = fp.MODULUS
@@ -606,3 +607,147 @@ def test_host_walk_branches_groups_keep_their_row_copies(hostlib, row, cols):
     for g, out in zip(groups, outs):
         np.testing.assert_array_equal(
             out.numpy(), merkle_cuda.walk_branches_plain(*g).numpy())
+
+
+# ---------------------------------------------------------------------------
+# the NTT stage kernel, driven through ops/ntt's card path
+# ---------------------------------------------------------------------------
+
+EDGES = [0, 1, P - 1, P, P + 1, 2**256 - 1, 2**256 - 2**32, 2**224 - 1,
+         int("FFFFFFFF00000000" * 4, 16), 2**255]
+
+
+def _root(n):
+    return pow(7, (P - 1) // n, P)
+
+
+def _raw(n, seed, lead=()):
+    """[*lead, n, 16] raw values below 2^256, the edge values first."""
+    rng = np.random.RandomState(seed)
+    count = n * int(np.prod(lead, dtype=np.int64))
+    v = rng.randint(0, 1 << 16, (count, 16)).astype(np.uint32)
+    k = min(count, len(EDGES))
+    v[:k] = fp.ints_to_limbs(EDGES[:k])
+    return v.reshape(tuple(lead) + (n, 16))
+
+
+def _np32(t):
+    return t.numpy().view(np.uint32)
+
+
+@pytest.mark.parametrize("n,lead", [(1, (3,)), (2, (3,)), (8, ()),
+                                    (256, (3,)), (1 << 10, ())])
+def test_host_ntt_kernel_path_equals_plain(hostlib, n, lead):
+    """The card path (stage 0 gathering from the caller's limbs, in-place
+    stages on the 8-word buffer, the last writing limbs scaled by n^-1)
+    through the host build, forward and inverse, raw edge values: equal to
+    the plain version word for word; the caller's tensor is not written."""
+    x = _i32(_raw(n, n, lead))
+    keep = x.clone()
+    for inverse in (False, True):
+        got = ntt.ntt_kernel(x, _root(n), inverse, lib=hostlib)
+        np.testing.assert_array_equal(
+            _np32(got), _np32(ntt.ntt_plain(x, _root(n), inverse)))
+    assert torch.equal(x, keep)
+
+
+def test_host_ntt_round_trip_2_16(hostlib):
+    n = 1 << 16
+    rng = np.random.RandomState(16)
+    x = _i32(rng.randint(0, 1 << 16, (n, 16)).astype(np.uint32) % 0xFFFF)
+    before = ntt.launches["ntt_stage"]
+    y = ntt.ntt_kernel(x, _root(n), lib=hostlib)
+    back = ntt.ntt_kernel(y, _root(n), inverse=True, lib=hostlib)
+    assert ntt.launches["ntt_stage"] - before == 32
+    np.testing.assert_array_equal(_np32(back), _np32(x))
+    # one output point against its Horner evaluation
+    vals = [fp.limbs_to_int(r) for r in _np32(x)]
+    w = pow(_root(n), 12345, P)
+    acc = 0
+    for c in reversed(vals):
+        acc = (acc * w + c) % P
+    assert fp.limbs_to_int(_np32(y)[12345]) == acc
+
+
+def test_host_ntt_strided_input(hostlib):
+    """A sliced, strided input takes the wrapper's canonical-stride copy."""
+    base = _i32(_raw(64, 3, (2,)))
+    x = base[:, ::2]                                    # [2, 32, 16] strided
+    got = ntt.ntt_kernel(x, _root(32), lib=hostlib)
+    np.testing.assert_array_equal(
+        _np32(got), _np32(ntt.ntt_plain(x.contiguous(), _root(32))))
+
+
+def test_host_ntt_cross_stage(hostlib):
+    """The sharded NTT's cross stage: pairs (a[j], b[j]) with the twiddle of
+    row (off + j) * (rows >> s), lo then hi, scaled when asked."""
+    n, s, off = 64, 4, 8                        # a stage of half 16 = 2^s
+    w = _root(n)
+    _, tw = ntt._card_tables(w, n, P, "cpu")
+    a, b = _i32(_raw(8, 5)), _i32(_raw(8, 6))
+    for scale in (None, ntt._scale_words(n, P, "cpu")):
+        got = ntt.cross_stage(a, b, tw, s, off, scale, lib=hostlib)
+        pows = [pow(w, (off + j) * (n >> (s + 1)), P) for j in range(8)]
+        k = pow(n, P - 2, P) if scale is not None else 1
+        av = [fp.limbs_to_int(r) for r in _np32(a)]
+        bv = [fp.limbs_to_int(r) for r in _np32(b)]
+        lo = [(x + y * t) * k % P for x, y, t in zip(av, bv, pows)]
+        hi = [(x - y * t) * k % P for x, y, t in zip(av, bv, pows)]
+        got_i = [[fp.limbs_to_int(r) % P for r in _np32(h)] for h in got]
+        assert got_i == [lo, hi]
+
+
+@pytest.mark.parametrize("fault", ["half_not_pow2", "half_too_big",
+                                   "twiddle_past_table", "perm_in_place",
+                                   "src_n_without_perm", "unaligned"])
+def test_host_ntt_stage_rejects_bad_arguments(hostlib, fault):
+    src = torch.zeros((8, 16), dtype=torch.int32)
+    dst = torch.zeros((8, 16), dtype=torch.int32)
+    tw = torch.zeros((4, 8), dtype=torch.int32)
+    perm = torch.arange(8, dtype=torch.int32)
+    f = dict(src=src.data_ptr(), perm=None, tw=tw.data_ptr(), scale=None,
+             dst=dst.data_ptr(), lead=1, n=8, src_n=8, half=2, tw_rows=4,
+             tw_stride=2, tw_off=0, src_limbs=1, dst_limbs=1)
+    assert hostlib.stark_ntt_stage(
+        ctypes.byref(_build.NttStageArgs(**f)), None) == 0
+    bad = {"half_not_pow2": dict(half=3), "half_too_big": dict(half=8),
+           "twiddle_past_table": dict(tw_off=2),
+           "perm_in_place": dict(perm=perm.data_ptr(), dst=src.data_ptr()),
+           "src_n_without_perm": dict(src_n=16),
+           "unaligned": dict(dst=dst.data_ptr() + 4)}[fault]
+    assert hostlib.stark_ntt_stage(
+        ctypes.byref(_build.NttStageArgs(**{**f, **bad})), None) != 0
+
+
+# ---------------------------------------------------------------------------
+# the MiMC scan kernel
+# ---------------------------------------------------------------------------
+
+MIMC_INPUTS = [0, 1, 3, P - 1, P, 2**256 - 1, 2**255 + 12345, 7 * 2**200]
+
+
+@pytest.mark.parametrize("power", [3, 2])
+@pytest.mark.parametrize("steps", [0, 1, 2, 70])
+def test_host_mimc_scan(hostlib, power, steps):
+    """The scan kernel's per-input body, built by g++: equal to the plain
+    version on raw inputs, a wide limb and (from 70 steps on) the cycled
+    constants of a family of 64."""
+    x = _i32(fp.ints_to_limbs(MIMC_INPUTS))
+    x[6, 15] = 0x12345                                  # a wide limb
+    c = _i32(mimc.round_constants_mimc(64))
+    out = torch.full_like(x, 7)
+    assert hostlib.stark_mimc_scan(x.data_ptr(), c.data_ptr(), 64,
+                                    max(steps - 1, 0), power, out.data_ptr(),
+                                    x.shape[0], None) == 0
+    np.testing.assert_array_equal(out.numpy(), mimc.mimc_plain(x, steps, c,
+                                                                  power).numpy())
+
+
+def test_host_mimc_scan_rejects_bad_arguments(hostlib):
+    x = _i32(fp.ints_to_limbs([1, 2]))
+    out = torch.empty_like(x)
+    args = [x.data_ptr(), x.data_ptr(), 2, 3, 3, out.data_ptr(), 2, None]
+    assert hostlib.stark_mimc_scan(*args) == 0
+    for at, bad in ((4, 4), (2, 0), (3, -1)):         # power, k, rounds
+        assert hostlib.stark_mimc_scan(
+            *args[:at], bad, *args[at + 1:]) != 0

@@ -174,3 +174,73 @@ def test_mul_sum_mod_broadcast_pairs():
     got = _n(F.mul_sum_mod([(_t(_np([k])[0]), _t(_np(xs)))],
                            extra=[_t(_np(xs))]))
     assert _ints(got) == [(k * x + x) % P for x in xs]
+
+
+# ---------------------------------------------------------------------------
+# exponentiation and inversion (products through mul_mod), against the JAX
+# package's namesakes.  The JAX inversion chain costs seconds to compile, so
+# everything is compiled once, in one jitted call: batch_inv (whose every
+# nonzero output is JAX's inv_mod of its input), pow_table, neg_mod and
+# pow_const.
+# ---------------------------------------------------------------------------
+
+POW_EXPONENTS = (0, 1, 13)
+
+
+@pytest.fixture(scope="module")
+def inversions():
+    import jax
+
+    rows = _np([v % P for v in _vals(31)]).reshape(3, 8, 16).copy()
+    rows[1, 2] = 0                                       # zeros map to 0
+    rows[2, 5:] = 0
+    base = 0x1234567 * 2**200 + 99
+    table = fp.pow2_table(base, 32)
+    e = np.array([0, 1, 5, 0xFFFFFFFF, 0x80000000, 123456789],
+                 dtype=np.uint32)
+    def jax_side(r, t, x):
+        return (JF.batch_inv(r), JF.pow_table(t, x, 32), JF.neg_mod(r[0]),
+                [JF.pow_const(r[0], k) for k in POW_EXPONENTS])
+
+    jinv, jpow, jneg, jpows = jax.jit(jax_side)(
+        jnp.asarray(rows), jnp.asarray(table), jnp.asarray(e))
+    return {"rows": rows, "table": table, "e": e, "base": base,
+            "batch_inv": np.asarray(jinv), "pow_table": np.asarray(jpow),
+            "neg_mod": np.asarray(jneg),
+            "pow_const": [np.asarray(x) for x in jpows]}
+
+
+def test_neg_and_pow_const_vs_jax(inversions):
+    v = inversions["rows"][0]
+    np.testing.assert_array_equal(_n(F.neg_mod(_t(v))),
+                                  inversions["neg_mod"])
+    assert _ints(_n(F.neg_mod(_t(v)))) == [-x % P for x in _ints(v)]
+    for k, want in zip(POW_EXPONENTS, inversions["pow_const"]):
+        got = _n(F.pow_const(_t(v), k))
+        np.testing.assert_array_equal(got, want)
+        assert _ints(got) == [pow(x, k, P) for x in _ints(v)]
+
+
+def test_inv_mod_vs_jax(inversions):
+    rows, want = inversions["rows"], inversions["batch_inv"]
+    got = _n(F.inv_mod(_t(rows)))
+    np.testing.assert_array_equal(got, want)          # 0 -> 0 on both sides
+    assert _ints(got) == [pow(x, P - 2, P) for x in _ints(rows)]
+    # a raw input is canonicalized first
+    assert _ints(_n(F.inv_mod(_t(_np([P + 2]))))) == [pow(2, P - 2, P)]
+    assert _ints(_n(F.pow2k(_t(_np([3])), 5))) == [pow(3, 32, P)]
+
+
+def test_batch_inv_vs_jax(inversions):
+    rows, want = inversions["rows"], inversions["batch_inv"]
+    np.testing.assert_array_equal(_n(F.batch_inv(_t(rows))), want)
+    moved = np.ascontiguousarray(np.moveaxis(rows, 1, 0))
+    np.testing.assert_array_equal(_n(F.batch_inv(_t(moved), axis=0)),
+                                  np.moveaxis(want, 1, 0))
+
+
+def test_pow_table_vs_jax(inversions):
+    d = inversions
+    got = _n(F.pow_table(_t(d["table"]), _t(d["e"]), 32))
+    np.testing.assert_array_equal(got, d["pow_table"])
+    assert _ints(got) == [pow(d["base"], int(x), P) for x in d["e"]]

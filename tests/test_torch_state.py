@@ -129,14 +129,14 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
     code = (
         "import sys\n"
         "import stark_verifier_tpu_torch as s\n"
-        "from stark_verifier_tpu_torch import _build, config, fp\n"
+        "from stark_verifier_tpu_torch import _build, config, debug, fp\n"
         "from stark_verifier_tpu_torch.ops import (blake2s, field, fri_cuda,\n"
-        "    merkle, merkle_cuda, mimc, prg, quartic, spot_cuda)\n"
+        "    merkle, merkle_cuda, mimc, ntt, prg, quartic, spot_cuda)\n"
         "from stark_verifier_tpu_torch.proofio import (device, ingest,\n"
         "    static_layout, wire)\n"
         "from stark_verifier_tpu_torch.protocol import verify\n"
         "from stark_verifier_tpu_torch import bench, cli, native, profiling\n"
-        "from stark_verifier_tpu_torch.parallel import mesh, rank_checks\n"
+        "from stark_verifier_tpu_torch.parallel import mesh, ntt, rank_checks\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'jaxlib' or m.split('.')[0] == 'stark_verifier_tpu']\n"
         "assert not bad, bad\n"
@@ -175,4 +175,4 @@ def test_kernel_build_raises_without_a_compiler(monkeypatch, tmp_path):
     monkeypatch.setitem(_build._state, "lib", None)
     with pytest.raises(RuntimeError, match="nvcc"):
         _build.load()
-    assert len(_build.source_hash()) == 16 and len(_build.sources()) == 4
+    assert len(_build.source_hash()) == 16 and len(_build.sources()) == 6
