@@ -12,7 +12,7 @@ It needs a CUDA device, `nvcc`, and nothing else: no network, no JAX.  Phases
 the CPU):
 
   1. device   -- the card's name and power limit;
-  2. build    -- nvcc builds the eight kernels from stark_verifier_tpu_torch/csrc;
+  2. build    -- nvcc builds the nine kernels from stark_verifier_tpu_torch/csrc;
                  the instruction counts of the bounds are read from this
                  build's SASS (stark_verifier_tpu_torch/sass.py: cuobjdump
                  of the library and of csrc/probes/work.cu);
@@ -22,10 +22,13 @@ the CPU):
                  launch, as the path runs them; C on the proof's strided poly
                  rows, its ok bytes and evaluation words; D at power 3 and 2,
                  with its K table and with K rows; the multiply's edge
-                 operands in C, D and E; the NTT stage kernel alone on a
-                 middle stage of 2^20 points and through ops/ntt.ntt at 2^13,
-                 2^16 and 2^20, forward and inverse; the MiMC scan at 512
-                 steps on 1,024 inputs, powers 3 and 2), with the wrapper's
+                 operands in C, D and E; the one-stage NTT kernel on a
+                 middle stage of 2^20 points and on a cross stage as the
+                 sharded NTT launches it; the several-stage NTT kernel
+                 through ops/ntt.ntt at 2^6, 2^13, 2^16 and 2^20, forward
+                 and inverse; the MiMC scan at 512 steps on 1,024 inputs,
+                 powers 3 and 2, and on 1 input, with the lanes it chooses
+                 and in each lane form, 1, 2 and 4), with the wrapper's
                  time (CUDA events around Python calls) and its device time
                  (calls replayed from a CUDA graph) beside the least time the
                  card could take; C's device time also at fewer proofs;
@@ -45,7 +48,7 @@ the CPU):
                  verify_proof_bytes on a ragged blob the oracle rejects;
   7. runtime statement -- make_general_verifier with input, round constants
                  and output as tensors (the constants go through an iNTT, one
-                 launch of the stage kernel a stage, and the iNTT is held
+                 launch of the several-stage kernel, and the iNTT is held
                  against its plain version; kernel E takes the four boundary
                  products); verify_mimc on a list of blobs; a fresh power-2
                  proof through SquareStatement;
@@ -90,13 +93,20 @@ the CPU):
                  in each parse mode, under torch.profiler;
  12. NTT, MiMC scan, debug (run after phase 10, before the times of phase
                  11, whose profiler passes come last) -- ops/ntt.ntt at 2^20
-                 (20 stage launches, no kernel E), its round trip and one
-                 point against a Horner evaluation on the host, 2^13 against
-                 the oracle's FFT, `bench --ntt 13 20` as a subprocess; the
-                 MiMC scan through MimcStatement.compute_output (the known
-                 output of input 3), 16 inputs against the oracle at 8,192
-                 steps, ms for 1 and 1,024 inputs; one STARK_DEBUG=1 pass of
-                 the first 16 proofs of phase 5, and a wide limb that raises.
+                 (2 launches of the several-stage kernel, no other), its
+                 round trip and one point against a Horner evaluation on the
+                 host, 2^13 against the oracle's FFT, the earlier transform of one
+                 stage launch a stage against the several-stage one at 2^20,
+                 2^16 and 2^13 (equal, then timed in turns), the wrapper's
+                 pass plan against others (tile sizes, three and four
+                 passes) at 2^20 and 2^16, `bench --ntt 13
+                 20` as a subprocess; the MiMC scan through
+                 MimcStatement.compute_output (the known output of input 3),
+                 16 inputs against the oracle at 8,192 steps, ms and cycles
+                 a round for 1, 1,024, 16,384 and 131,072 inputs in each
+                 lane form and the chosen one, in turns, the SM clock read
+                 during a scan; one STARK_DEBUG=1 pass of the first 16
+                 proofs of phase 5, and a wide limb that raises.
 
 Each path is driven with every launch count set to 0 just before it and read
 just after.  The last line printed is {"ok": true, "device": {...}}; the line
@@ -151,9 +161,11 @@ BATCH = 1024
 BIG_BATCH = 8192
 RAGGED_BATCH = 16      # proofs of the padded batch of the unshared path
 MUL_BIG = 1 << 20      # elements of the multiply's large comparison
-NTT_LOGS = (13, 16, 20)  # standalone NTT sizes held against the plain version
+NTT_LOGS = (20, 16, 13, 6)  # NTT sizes held against the plain version
 NTT_STAGE = 10         # the middle stage of 2^20 timed alone
 MIMC_STEPS = 8192      # the default family's trace: 8,191 rounds
+MIMC_LANES = (1, 2, 4)  # the scan's lane forms
+MIMC_INPUTS = (1, 1024, 16384, 131072)  # inputs of the timed scans
 MIMC_OUT_3 = int("95224774355499767951968048714566316597785297695903697235"
                  "130434363122555476056")   # its output for input 3
 
@@ -646,39 +658,129 @@ def check_ntt_stage(gen, ops, logn, s):
                    [(n // 2, ops["probe_butterfly"])], 10)
 
 
+def check_cross_stage(gen, ops, logn):
+    """One launch of the stage kernel as the sharded NTT runs a cross stage
+    (ops/ntt.cross_stage): the last stage of a 2^logn-point transform, its
+    pairs (a[j], b[j]) the two halves of the points, raw values, against the
+    plain butterfly on the same operands (the twiddle rows gathered from the
+    same table)."""
+    n = 1 << logn
+    half, s = n // 2, logn - 1
+    a, b = rand_limbs(gen, (half,)), rand_limbs(gen, (half,))
+    _, tw = ntt._card_tables(ntt_root(n), n, P, str(DEV))
+    rows = torch.arange(half, device=DEV) * (tw.shape[0] >> s)
+    w = F.words_le_to_limbs(tw[rows])
+
+    def plain():
+        t = field_cuda.mul_mod_plain(w, b)
+        return torch.stack([F.add_mod(a, t), F.sub_mod(a, t)])
+
+    def call():
+        return ntt.cross_stage(a, b, tw, s, 0)
+
+    got = call()
+    torch.cuda.synchronize()
+    return measure(f"a cross stage (s={s}) of 2^{logn} points, limbs in and "
+                   "out", call, plain, [got], [plain()],
+                   nbytes(a, b, got) + half * 32,
+                   [(half, ops["probe_butterfly"])], 10)
+
+
+def pass_bytes(n, inverse):
+    """Bytes the passes of an n-point transform move: the first reads the
+    caller's limbs (64 bytes a point) and the permutation, passes between
+    read and write the 8-word buffer, the last writes limbs; each pass reads
+    about one twiddle a point (a block C (2^k - 1)) and the inverse n^-1."""
+    plan = ntt.passes(n.bit_length() - 1, n)
+    moved = n * 4 + (32 if inverse else 0)
+    for i in range(len(plan)):
+        moved += n * (64 if i == 0 else 32) + n * (64 if i == len(plan) - 1
+                                                   else 32) + n * 32
+    return moved
+
+
 def check_ntt(gen, ops, logn, inverse, reps):
-    """ops/ntt.ntt on the card (one stage launch a stage) against its plain
-    version on the card, raw values with the edge values among them."""
+    """ops/ntt.ntt on the card (one launch of the several-stage kernel a
+    pass) against its plain version on the card, raw values with the edge
+    values among them."""
     n = 1 << logn
     x = rand_limbs(gen, (n,))
-    got = ntt.ntt(x, ntt_root(n), inverse)
+    root = ntt_root(n)       # once: a 256-bit power on the host is ~0.2 ms
+    got = ntt.ntt(x, root, inverse)
     torch.cuda.synchronize()
-    want = ntt.ntt_plain(x, ntt_root(n), inverse)
+    want = ntt.ntt_plain(x, root, inverse)
     moved, work = ntt_function_bound(ops, n, inverse)
     case = measure(f"{'inverse' if inverse else 'forward'} transform, "
-                   f"2^{logn} points", lambda: ntt.ntt(x, ntt_root(n),
-                                                      inverse),
-                   lambda: ntt.ntt_plain(x, ntt_root(n), inverse), [got],
+                   f"2^{logn} points", lambda: ntt.ntt(x, root, inverse),
+                   lambda: ntt.ntt_plain(x, root, inverse), [got],
                    [want], moved, work, reps)
-    # what the stages move when each is its own launch: the sum of their
-    # byte bounds (the first reads and the last writes 16 limbs a point)
-    case["stage_bytes_bound_ms"] = (
-        n * (96 + 64 * (logn - 2) + 96) + n // 2 * 32 * logn) / \
-        MEM_BYTES_PER_S * 1e3
+    case["passes"] = len(ntt.passes(logn, n))
+    case["pass_bytes_bound_ms"] = pass_bytes(n, inverse) / MEM_BYTES_PER_S \
+        * 1e3
     return case
 
 
-def check_mimc(gen, ops, n, steps, power=3, reps=3):
+def per_stage_ntt(x, root, inverse=False):
+    """The earlier transform: one launch of the stage kernel a stage, the first
+    gathering from the caller's limbs, the stages between in place on the
+    8-word buffer, the last writing limbs scaled by n^-1.  Kept here, off
+    the port's path, as the yardstick of the several-stage kernel."""
+    n = x.shape[-2]
+    logn = n.bit_length() - 1
+    perm, tw = ntt._card_tables(ntt._transform_root(root, inverse, P), n, P,
+                                str(x.device))
+    scale = ntt._scale_words(n, P, str(x.device)) if inverse else None
+    out = torch.empty((1, n, 16), dtype=torch.int32, device=x.device)
+    work = torch.empty((1, n, 8), dtype=torch.int32, device=x.device)
+    args = _build.NttStageArgs(tw=tw.data_ptr(), lead=1, n=n,
+                               tw_rows=tw.shape[0], tw_off=0)
+    lib, stream = _build.load(), ntt._stream(x.device)
+    for s in range(logn):
+        first, last = s == 0, s == logn - 1
+        args.src = (x if first else work).data_ptr()
+        args.dst = (out if last else work).data_ptr()
+        args.perm = perm.data_ptr() if first else None
+        args.scale = scale.data_ptr() if last and inverse else None
+        args.src_n = n
+        args.half, args.tw_stride = 1 << s, tw.shape[0] >> s
+        args.src_limbs, args.dst_limbs = int(first), int(last)
+        ntt._launch(lib, stream, args)
+    return out[0]
+
+
+MIMC_CONSTS = [(i ** 7) ^ 42 for i in range(64)]
+
+
+def mimc_lanes(x, steps, c, power, lanes):
+    """The scan kernel in one lane form, through its C entry point (the
+    wrapper ops/mimc.mimc takes the lanes the kernel chooses)."""
+    out = torch.empty_like(x)
+    _build.check(_build.load().stark_mimc_scan_lanes(
+        x.data_ptr(), c.data_ptr(), c.shape[0], max(steps - 1, 0), power,
+        out.data_ptr(), x.shape[0], lanes,
+        torch.cuda.current_stream().cuda_stream), "stark_mimc_scan_lanes")
+    return out
+
+
+def check_mimc(gen, ops, n, steps, power=3, reps=3, lanes=None):
     """The MiMC scan kernel against its plain version on the card: raw
-    inputs, the edge values among them, the default family's constants."""
+    inputs, the edge values among them, the default family's constants;
+    lanes None: through ops/mimc.mimc (the lanes the kernel chooses), else
+    that lane form."""
     x = rand_limbs(gen, (n,))
-    c = limbs_on_card([(i ** 7) ^ 42 for i in range(64)])
-    got = mimc.mimc(x, steps, c, power)
+    c = limbs_on_card(MIMC_CONSTS)
+
+    def call():
+        if lanes is None:
+            return mimc.mimc(x, steps, c, power)
+        return mimc_lanes(x, steps, c, power, lanes)
+
+    got = call()
     torch.cuda.synchronize()
     want = mimc.mimc_plain(x, steps, c, power)
-    return measure(f"{n} inputs, {steps} steps, power {power}",
-                   lambda: mimc.mimc(x, steps, c, power),
-                   lambda: mimc.mimc_plain(x, steps, c, power), [got],
+    form = "chosen lanes" if lanes is None else f"{lanes} lane(s) a value"
+    return measure(f"{n} inputs, {steps} steps, power {power}, {form}",
+                   call, lambda: mimc.mimc_plain(x, steps, c, power), [got],
                    [want], nbytes(x, c, got),
                    [(n * (steps - 1), ops[f"probe_mimc{power}"])], reps)
 
@@ -809,7 +911,8 @@ def sass_phase():
             f"{ops[key]}")
     for name in rep:
         if any(k in name for k in ("fri_rows", "spot_kernel", "mul_mod",
-                                   "ntt_stage", "mimc_scan")):
+                                   "ntt_stage", "ntt_block",
+                                   "mimc_scan")):
             log(f"sass {name}: a thread's path {json.dumps(rep[name]['path'])}")
     for key in SASS_PROBES:
         if key not in work:
@@ -895,17 +998,25 @@ def kernel_phase(cfg, tables, ops):
         gen, ops, b, [(2 * sp, 24, dm)], f"B={b} n={2 * sp} vw=24 depth={dm} "
         f"in {dm + 1} rows", 10, max_depth=dm + 1))
     check_value_classes(gen)
-    # the NTT stage kernel: one middle stage of 2^20 points alone, then
-    # whole transforms through ops/ntt.ntt, forward and inverse
-    ntt_cases = [check_ntt_stage(gen, ops, 20, NTT_STAGE)]
-    for logn in NTT_LOGS:
-        for inverse in (False, True):
-            ntt_cases.append(check_ntt(gen, ops, logn, inverse,
-                                       20 if logn < 20 else 5))
+    # the one-stage NTT kernel: one middle stage of 2^20 points alone, and
+    # a cross stage as the sharded NTT launches it
+    stage_cases = [check_ntt_stage(gen, ops, 20, NTT_STAGE),
+                   check_cross_stage(gen, ops, 20)]
+    # the several-stage kernel: whole transforms through ops/ntt.ntt,
+    # forward and inverse, 2^20 first (the row's numbers)
+    block_cases = [check_ntt(gen, ops, logn, inverse, 20 if logn < 20 else 5)
+                   for logn in NTT_LOGS for inverse in (False, True)]
     # the MiMC scan kernel: 512 steps on 1,024 inputs at both powers (the
-    # plain version on the card takes some 250 launches a round)
+    # plain version on the card takes some 250 launches a round) and on one
+    # input, with the lanes it chooses; then each lane form at 130 steps
+    # (past the second wrap of the 64 constants)
     mimc_cases = [check_mimc(gen, ops, 1024, 512, 3),
-                  check_mimc(gen, ops, 1024, 512, 2)]
+                  check_mimc(gen, ops, 1024, 512, 2),
+                  check_mimc(gen, ops, 1, 512, 3)]
+    mimc_cases += [check_mimc(gen, ops, n, 130, power, lanes=lanes)
+                   for lanes in MIMC_LANES for n, power in ((1024, 3),
+                                                            (1024, 2),
+                                                            (1, 3))]
     per_proof = sum(c["compressions"] for c in f_cases[:2]) // b
     log(f"unshared walk: {per_proof} compressions a proof over "
         f"{len(f_main + f_fri)} groups in two launches")
@@ -938,10 +1049,12 @@ def kernel_phase(cfg, tables, ops):
                tpu + "field_pallas.py:206", e_cases),
         record("walk_branches", src + "merkle_walk.cu",
                tpu + "merkle_pallas.py:117", f_cases),
-        # no pallas_call behind these two: the stage of the XLA-compiled
-        # ntt loop and the lax.scan of the MiMC rounds
+        # no pallas_call behind these three: the stage loop of the
+        # XLA-compiled ntt and the lax.scan of the MiMC rounds
         record("ntt_stage", src + "ntt_stage.cu", tpu + "ntt.py:86",
-               ntt_cases),
+               stage_cases),
+        record("ntt_block", src + "ntt_block.cu", tpu + "ntt.py:86",
+               block_cases),
         record("mimc_scan", src + "mimc_scan.cu", tpu + "mimc.py:41",
                mimc_cases),
     ]
@@ -1260,14 +1373,16 @@ def runtime_statement_path(cfg, blob, tree, want, kernels, consts, out):
     require_launches("runtime-statement path", counts,
                      ("mul_mod", "walk_leaf_levels", "walk_quads",
                       "fri_rows", "spot_checks"))
-    # the iNTT of the constants: one stage launch a stage, its products the
-    # stage kernel's own; kernel E keeps the four boundary products of a
-    # runtime input (iy1, -iy1, iy0, -last iy0)
-    stages = cfg.num_constants.bit_length() - 1
-    if counts["ntt_stage"] != stages or counts["mul_mod"] != 4:
-        fail(f"the runtime-statement path launched the stage kernel "
-             f"{counts['ntt_stage']} times and kernel E {counts['mul_mod']} "
-             f"times, expected {stages} and 4")
+    # the iNTT of the constants: one launch of the several-stage kernel for
+    # its six stages (not six of the one-stage kernel), its products the
+    # kernel's own; kernel E keeps the four boundary products of a runtime
+    # input (iy1, -iy1, iy0, -last iy0)
+    if (counts["ntt_block"], counts["ntt_stage"], counts["mul_mod"]) != (
+            1, 0, 4):
+        fail(f"the runtime-statement path launched the several-stage NTT "
+             f"kernel {counts['ntt_block']} times, the one-stage kernel "
+             f"{counts['ntt_stage']} and kernel E {counts['mul_mod']}, "
+             f"expected 1, 0 and 4")
     for k in kernels:
         if k["name"] == "mul_mod":
             k["launches"], k["launches_on"] = (counts["mul_mod"],
@@ -1280,10 +1395,10 @@ def runtime_statement_path(cfg, blob, tree, want, kernels, consts, out):
     err = max_abs_err(ntt.intt(consts_l, root),
                       ntt.ntt_plain(consts_l, root, inverse=True))
     for k in kernels:
-        if k["name"] == "ntt_stage":
+        if k["name"] == "ntt_block":
             k["max_abs_err"] = max(k["max_abs_err"], err)
     if err:
-        fail("the stage kernel's iNTT of the path's constants disagrees with "
+        fail("the NTT kernel's iNTT of the path's constants disagrees with "
              "the plain version")
     log(f"runtime-statement path: the iNTT of its {cfg.num_constants} "
         f"constants against the plain version: max_abs_err {err}")
@@ -1868,10 +1983,12 @@ def rank_results(what, ranks, i, want, kernels, idle=()):
         f"{[steps[i]['launches'] for steps in ranks]}")
 
 
-def sharded_ntt_results(what, ranks, i, nums):
+def sharded_ntt_results(what, ranks, i, nums, kernels):
     """Step i of every rank (rank_checks.sharded_ntt): each rank's slice and
     the gathered result equal the one-process ntt, and the rank launched
-    the stage kernel."""
+    the several-stage kernel (its local stages) and, in a world of several
+    ranks, the one-stage kernel (the cross stages), whose launches on rank
+    0 the kernel's record takes."""
     for rank, steps in enumerate(ranks):
         for rec in steps[i]["result"]:
             if not (rec["slice_equal"] and rec["gathered_equal"]):
@@ -1879,7 +1996,14 @@ def sharded_ntt_results(what, ranks, i, nums):
                      f"{rec['n']} points (inverse {rec['inverse']}) differs "
                      f"from the one-process ntt")
         require_launches(f"{what} (rank {rank})", steps[i]["launches"],
-                         ("ntt_stage",))
+                         ("ntt_block",) + (("ntt_stage",) if len(ranks) > 1
+                                           else ()))
+    if len(ranks) > 1:
+        for k in kernels:
+            if k["name"] == "ntt_stage":
+                k["launches"] = ranks[0][i]["launches"]["ntt_stage"]
+                k["launches_on"] = (f"parallel/ntt.make_sharded_ntt, {what}, "
+                                    "rank 0, cross stages")
     secs = {f"{r['n']}{'_inverse' if r['inverse'] else ''}":
             [steps[i]["result"][j]["seconds"] for steps in ranks]
             for j, r in enumerate(ranks[0][i]["result"])}
@@ -1890,7 +2014,7 @@ def sharded_ntt_results(what, ranks, i, nums):
         f"launches by rank {[steps[i]['launches'] for steps in ranks]}")
 
 
-def rank_phase(cfg, blob, want, kinds, names):
+def rank_phase(cfg, blob, want, kinds, names, kernels):
     """Phase 10.  (a) device_count ranks over NCCL: the sharded verifier on
     the 1,024-proof batch of phase 5.  (b) two ranks on one card over gloo:
     the sharded verifier, the sharded blob verifier, the stream of phase 9
@@ -1912,7 +2036,7 @@ def rank_phase(cfg, blob, want, kinds, names):
          (R.sharded_ntt, dict(cases=NTT_SHARDED))], devices="cuda")
     rank_results(f"nccl x {n_cards}: sharded verifier, batch {BATCH}", ranks,
                  0, want_batch, SHARED_KERNELS)
-    sharded_ntt_results(f"nccl_x_{n_cards}", ranks, 1, nums)
+    sharded_ntt_results(f"nccl_x_{n_cards}", ranks, 1, nums, kernels)
 
     blobs = {k: v[0] for k, v in kinds.items()}
     oracle_verdicts = [kinds[k][1] for k in names]
@@ -1946,7 +2070,7 @@ def rank_phase(cfg, blob, want, kinds, names):
         fail(f"the oracle's verdicts on the point kinds: {point_want}")
     rank_results("gloo x 2: point parallelism", ranks, 4, point_want,
                  POINT_KERNELS, idle=("walk_leaf_levels", "walk_quads"))
-    sharded_ntt_results("gloo_x_2", ranks, 7, nums)
+    sharded_ntt_results("gloo_x_2", ranks, 7, nums, kernels)
 
     # (c) the numbers, each rank's seconds between barriers
     res = [steps[5]["result"] for steps in ranks]
@@ -2002,28 +2126,143 @@ def horner(vals, x):
     return acc
 
 
-def ntt_mimc_debug_phase(cfg, tree, want, kernels):
-    """Phase 12.  The standalone NTT through ops/ntt.ntt (counted: one stage
-    launch a stage, no kernel E), against the oracle's FFT at 2^13, a round
-    trip and one output point against a Horner evaluation on the host at
-    2^20, and `bench --ntt 13 20` as a subprocess; the MiMC scan through the
-    family's compute_output (counted), against the oracle on 16 inputs and
-    the known output of input 3, and its time for 1 and 1,024 inputs; a
-    STARK_DEBUG=1 pass of the first 16 proofs of phase 5, and a violation
-    that raises."""
+def per_stage_vs_passes(ops):
+    """The earlier transform (one stage launch a stage) against ops/ntt.ntt (one
+    launch a pass) at 2^20, 2^16 and 2^13, forward: equal, then device ms
+    (a CUDA graph of the calls) and wrapper ms in turns (per stage, passes,
+    passes, per stage), each beside the transform's bound."""
+    out = {"card": nvidia_smi_line()}
+    for logn in (20, 16, 13):
+        n = 1 << logn
+        gen = torch.Generator(device=DEV)
+        gen.manual_seed(logn)
+        x = rand_limbs(gen, (n,))
+        root = ntt_root(n)
+        if not torch.equal(per_stage_ntt(x, root), ntt.ntt(x, root)):
+            fail(f"ntt at 2^{logn}: the per-stage transform and the "
+                 f"several-stage one differ")
+        reps = 20 if logn < 20 else 5
+        calls = {"per_stage": lambda: per_stage_ntt(x, root),
+                 "passes": lambda: ntt.ntt(x, root)}
+        rec = {k: {"device_ms": [], "ms": []} for k in calls}
+        for key in ("per_stage", "passes", "passes", "per_stage"):
+            rec[key]["device_ms"].append(device_ms(calls[key], reps))
+            rec[key]["ms"].append(time_ms(calls[key], reps))
+        bms = bound(*ntt_function_bound(ops, n, False))[0]
+        for key in calls:
+            rec[key]["device_over_bound"] = min(rec[key]["device_ms"]) / bms
+        rec["bound_ms"] = bms
+        rec["launches"] = {"per_stage": logn,
+                           "passes": len(ntt.passes(logn, n))}
+        out[f"2^{logn}"] = rec
+    log(f"ntt per stage vs passes (forward, in turns): {json.dumps(out)}")
+
+
+# ops/ntt's pass plans swept in phase 12: (stages a pass at most, sub-
+# transforms a block, tile points at most), the wrapper's first
+NTT_PLANS = [(10, 2, 1024), (10, 1, 1024), (10, 2, 2048), (7, 2, 1024),
+             (5, 2, 1024)]
+
+
+def pass_plans():
+    """Device ms of ops/ntt.ntt, forward, at 2^20 and 2^16 under each plan
+    of NTT_PLANS (the module's constants set for the call and restored),
+    each exact against the wrapper's own plan, the wrapper's plan again
+    last: what tile size and pass count cost."""
+    keep = (ntt.PASS_STAGES, ntt.PASS_SUBS, ntt.PASS_TILE)
+    out = {"card": nvidia_smi_line()}
+    try:
+        for logn in (20, 16):
+            n = 1 << logn
+            gen = torch.Generator(device=DEV)
+            gen.manual_seed(logn + 1)
+            x = rand_limbs(gen, (n,))
+            root = ntt_root(n)
+            want = ntt.ntt(x, root)
+            rec = {}
+            for plan in NTT_PLANS + NTT_PLANS[:1]:
+                ntt.PASS_STAGES, ntt.PASS_SUBS, ntt.PASS_TILE = plan
+                if not torch.equal(ntt.ntt(x, root), want):
+                    fail(f"ntt at 2^{logn} under plan {plan} differs")
+                rec.setdefault(str(plan), {"passes": ntt.passes(logn, n),
+                                           "device_ms": []})
+                rec[str(plan)]["device_ms"].append(device_ms(
+                    lambda: ntt.ntt(x, root), 20 if logn < 20 else 5))
+            out[f"2^{logn}"] = rec
+    finally:
+        ntt.PASS_STAGES, ntt.PASS_SUBS, ntt.PASS_TILE = keep
+    log(f"ntt pass plans (forward): {json.dumps(out)}")
+
+
+def sm_clock_during(call):
+    """The SM clock (MHz, nvidia-smi) read while `call`'s launches run."""
+    call()
+    got = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader,nounits"], check=True, capture_output=True,
+        text=True, timeout=60).stdout
+    torch.cuda.synchronize()
+    return [float(v) for v in got.strip().splitlines()[0].split(",")]
+
+
+def scan_times(c):
+    """ms of a scan of MIMC_STEPS steps at MIMC_INPUTS inputs, in each lane
+    form and with the lanes the kernel chooses, in turns; cycles a round at
+    the SM clock read during a long one-input scan."""
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(8192)
+    many = rand_limbs(gen, (max(MIMC_INPUTS),))
+    long_steps = 400 * MIMC_STEPS
+    clock, clock_max = sm_clock_during(
+        lambda: mimc_lanes(many[:1], long_steps, c, 3, 1))
+    out = {"card": nvidia_smi_line(), "sm_clock_mhz": clock,
+           "sm_clock_max_mhz": clock_max, "steps": MIMC_STEPS}
+    rounds = MIMC_STEPS - 1
+    for n in MIMC_INPUTS:
+        x = many[:n]
+        calls = {f"lanes_{k}": (lambda k=k: mimc_lanes(x, MIMC_STEPS, c, 3,
+                                                       k))
+                 for k in MIMC_LANES}
+        calls["chosen"] = lambda: mimc.mimc(x, MIMC_STEPS, c)
+        want = calls["lanes_1"]()
+        for key, call in calls.items():
+            if not torch.equal(call(), want):
+                fail(f"mimc at {n} inputs: {key} differs from one lane")
+        order = list(calls) + list(reversed(calls))
+        rec = {key: [] for key in calls}
+        for key in order:
+            rec[key].append(time_ms(calls[key], 3 if n > 16384 else 5))
+        rec = {key: {"ms": v, "cycles_a_round": min(v) * 1e-3 * clock * 1e6
+                     / rounds} for key, v in rec.items()}
+        out[f"{n}_inputs"] = rec
+    log(f"mimc scan times: {json.dumps(out)}")
+
+
+def ntt_mimc_debug_phase(cfg, tree, want, kernels, ops):
+    """Phase 12.  The standalone NTT through ops/ntt.ntt (counted: two
+    launches of the several-stage kernel at 2^20, no other), against the
+    oracle's FFT at 2^13, a round trip and one output point against a Horner
+    evaluation on the host at 2^20, the earlier per-stage transform against it
+    (equal, timed in turns), and `bench --ntt 13 20` as a subprocess; the
+    MiMC scan through the family's compute_output (counted), against the
+    oracle on 16 inputs and the known output of input 3, and its times in
+    each lane form; a STARK_DEBUG=1 pass of the first 16 proofs of phase 5,
+    and a violation that raises."""
     n = 1 << 20
     rng = np.random.RandomState(20)
     host = rng.randint(0, 1 << 16, (n, 16)).astype(np.int32)
     host[:, -1] %= 0xFFFF                             # canonical values
     x = torch.from_numpy(host).to(DEV)
     y, counts = counted(lambda: ntt.ntt(x, ntt_root(n)))
-    if counts["ntt_stage"] != 20 or counts["mul_mod"] != 0:
-        fail(f"ntt at 2^20 launched the stage kernel {counts['ntt_stage']} "
-             f"times and kernel E {counts['mul_mod']} times, expected 20 "
-             f"and 0")
+    if (counts["ntt_block"], counts["ntt_stage"], counts["mul_mod"]) != (
+            2, 0, 0):
+        fail(f"ntt at 2^20 launched the several-stage kernel "
+             f"{counts['ntt_block']} times, the one-stage kernel "
+             f"{counts['ntt_stage']} and kernel E {counts['mul_mod']}, "
+             f"expected 2, 0 and 0")
     for k in kernels:
-        if k["name"] == "ntt_stage":
-            k["launches"], k["launches_on"] = (counts["ntt_stage"],
+        if k["name"] == "ntt_block":
+            k["launches"], k["launches_on"] = (counts["ntt_block"],
                                                "ops/ntt.ntt, 2^20 points")
     back = ntt.intt(y, ntt_root(n))
     if not torch.equal(back, x):
@@ -2039,9 +2278,11 @@ def ntt_mimc_debug_phase(cfg, tree, want, kernels):
     if [fp.limbs_to_int(r) for r in got.astype(np.uint32)] != \
             oracle.fft_fwd(small, ntt_root(m)):
         fail("ntt at 2^13 differs from the oracle's FFT")
-    log(f"ntt: 2^20 forward in {counts['ntt_stage']} stage launches (no "
-        f"kernel E), the round trip exact, point {at} equal to its Horner "
-        f"evaluation; 2^13 equal to the oracle's FFT")
+    log(f"ntt: 2^20 forward in {counts['ntt_block']} launches of the "
+        f"several-stage kernel (no other), the round trip exact, point {at} "
+        f"equal to its Horner evaluation; 2^13 equal to the oracle's FFT")
+    per_stage_vs_passes(ops)
+    pass_plans()
 
     rec, _ = run_json(["stark_verifier_tpu_torch.bench", "--ntt", "13", "20"],
                       "bench --ntt 13 20", timeout=600)
@@ -2068,15 +2309,9 @@ def ntt_mimc_debug_phase(cfg, tree, want, kernels):
     if [fp.limbs_to_int(r) for r in got.astype(np.uint32)] != [
             oracle.mimc(v, MIMC_STEPS, consts) for v in inputs]:
         fail("the MiMC scan at 8,192 steps differs from the oracle")
-    gen = torch.Generator(device=DEV)
-    gen.manual_seed(8192)
-    many = rand_limbs(gen, (1024,))
-    scan_ms = {f"{k}_inputs": time_ms(lambda: mimc.mimc(many[:k], MIMC_STEPS,
-                                                       c), 5)
-               for k in (1, 1024)}
     log(f"mimc: compute_output(3) = the known output; 16 inputs equal the "
-        f"oracle's at {MIMC_STEPS} steps; ms a scan of {MIMC_STEPS} steps "
-        f"{json.dumps(scan_ms)}")
+        f"oracle's at {MIMC_STEPS} steps")
+    scan_times(c)
 
     head = dev_io.tree_map(lambda t: t[:16], tree)
     before = os.environ.get("STARK_DEBUG")
@@ -2152,8 +2387,8 @@ def main():
                                      out)
     strict_phase(cfg, blob, tree_np)
     kinds, names = stream_phase(cfg, blob, tree_np, consts, out)
-    rank_phase(cfg, blob, want, kinds, names)
-    ntt_mimc_debug_phase(cfg, tree, want, kernels)
+    rank_phase(cfg, blob, want, kinds, names, kernels)
+    ntt_mimc_debug_phase(cfg, tree, want, kernels, ops)
     for k in kernels:
         if k["launches"] <= 0:
             fail(f"kernel {k['name']} was launched on none of the paths")

@@ -71,6 +71,15 @@ class NttStageArgs(ctypes.Structure):
                 ("tw_off", _ll), ("src_limbs", _i), ("dst_limbs", _i)]
 
 
+class NttBlockArgs(ctypes.Structure):
+    """The operands of one pass of several NTT stages (csrc/ntt_block.cu,
+    struct stark_ntt_block_args: the same fields in the same order)."""
+    _fields_ = [("src", _p), ("perm", _p), ("tw", _p), ("scale", _p),
+                ("dst", _p), ("lead", _ll), ("n", _ll), ("src_n", _ll),
+                ("tw_rows", _ll), ("s0", _i), ("k", _i), ("lc", _i),
+                ("src_limbs", _i), ("dst_limbs", _i)]
+
+
 _groups = ctypes.POINTER(WalkGroup)
 # C entry points: every pointer and the stream are c_void_p (a bare Python
 # int would be passed as a 32-bit int and cut the pointer)
@@ -82,7 +91,9 @@ SIGNATURES = {
     "stark_mul_mod": [_p, _ll, _p, _ll, _p, _ll, _p],
     "stark_walk_branches_groups": [_groups, _i, _p],
     "stark_ntt_stage": [ctypes.POINTER(NttStageArgs), _p],
+    "stark_ntt_block": [ctypes.POINTER(NttBlockArgs), _p],
     "stark_mimc_scan": [_p, _p, _ll, _ll, _i, _p, _ll, _p],
+    "stark_mimc_scan_lanes": [_p, _p, _ll, _ll, _i, _p, _ll, _i, _p],
 }
 
 _state = {"lib": None, "seconds": None, "log": ""}

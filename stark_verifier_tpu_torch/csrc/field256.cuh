@@ -229,3 +229,36 @@ STARK_HD fe fe_mul(const fe& a, const fe& b) {
   fe_acc_mul(acc, a, b);
   return fe_reduce(acc);
 }
+
+// r[0..16) = a * b (any a, b < 2^256).
+STARK_HD void fe_mul_wide(const fe& a, const fe& b, uint32_t* r) {
+#pragma unroll
+  for (int k = 0; k < 16; ++k) r[k] = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    uint64_t carry = 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const uint64_t t = (uint64_t)a.v[i] * b.v[j] + r[i + j] + carry;
+      r[i + j] = (uint32_t)t;
+      carry = t >> 32;
+    }
+    r[i + 8] = (uint32_t)carry;
+  }
+}
+
+// (a * b) mod p, canonical, for any a, b < 2^256: fe_mul's result through
+// a 16-limb product (each row's carry stops at its top limb, where fe_mul's
+// accumulator carries it to limb 17) and three folds: < 2^298, < 2^256 +
+// 2^83, then (if that carried) a low part < 2^83 plus C, below 2^256.
+STARK_HD fe fe_mul_short(const fe& a, const fe& b) {
+  uint32_t w[16], x[11], y[9], z[9];
+  fe_mul_wide(a, b, w);
+  fe_fold<8, 11>(w, x);
+  fe_fold<2, 9>(x, y);
+  fe_fold<1, 9>(y, z);
+  fe r;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) r.v[k] = z[k];
+  return fe_canon(r);
+}

@@ -28,26 +28,25 @@
 //     n^-1), fe_mul taking any value < 2^256 to the canonical product, as
 //     the plain version's final mul_mod does.
 //
-// Layouts: a side is either the public [.., 16] layout (16-bit limbs, one a
-// 32-bit word, 64 bytes a value) or the working layout (eight little-endian
-// 32-bit words, 32 bytes a value).  The wrapper (ops/ntt.py) reads the
-// caller's values in the public layout in stage 0, keeps every stage
-// between in the working layout, in place in one buffer it owns (a thread
-// writes only the two points it read), and writes the public layout in the
-// last stage.  Limbs must be < 2^16.  The twiddle table is the powers of
-// the transform's root, packed: stage s of an n-point transform reads
-// w^(j n / 2^(s+1)) at stride n / 2^(s+1) in the table of n / 2 powers.
+// Layouts: see ntt.cuh.  Limbs must be < 2^16.  The twiddle table is the
+// powers of the transform's root, packed: stage s of an n-point transform
+// reads w^(j n / 2^(s+1)) at stride n / 2^(s+1) in the table of n / 2
+// powers.
+//
+// Where it runs: the stages whose partner points lie on another rank in the
+// sharded NTT (ops/ntt.cross_stage, parallel/ntt.py).  A whole transform,
+// or a rank's local stages, runs several stages a launch in shared memory
+// (ntt_block.cu); the one-launch-a-stage transform is what chip_smoke.py
+// times that kernel against.
 //
 // Bound on an H100: bytes.  A stage moves 64 bytes a point in the working
 // layout (96 in the public one) and computes one product, one add and one
 // subtract a pair: about 430 instructions (probe_butterfly of
 // csrc/probes/work.cu in the SASS) for 128 bytes, 3.4 a byte, where the
 // card issues 10 for each byte it moves.  On an H100 80GB HBM3 at 700 W a
-// middle stage of 2^20 points takes 0.026 ms, 1.3x of its byte bound, and
-// a 2^20-point transform 0.47 ms.  Its twenty stages move twenty times the
-// data the transform needs (its own bound is 0.13 ms, operations); several
-// stages a launch in shared memory would cut that (a later change).
-#include "field256.cuh"
+// middle stage of 2^20 points takes 0.026 ms, 1.3x of its byte bound; the
+// twenty stages of a 2^20-point transform, one a launch, took 0.47 ms.
+#include "ntt.cuh"
 
 // The operands of one stage (the host's ctypes structure and the kernel's
 // parameter share this layout).
@@ -71,41 +70,6 @@ struct stark_ntt_stage_args {
   int dst_limbs;
 };
 
-STARK_HD fe stark_ntt_load(const uint32_t* base, long long row, int limbs) {
-  return limbs ? fe_from_limbs16(base + row * 16)
-               : fe_from_le_words(base + row * 8);
-}
-
-STARK_HD void stark_ntt_store(uint32_t* base, long long row, int limbs,
-                              const fe& x) {
-  if (limbs) {
-    uint32_t r[16];
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      r[2 * k] = x.v[k] & 0xFFFFu;
-      r[2 * k + 1] = x.v[k] >> 16;
-    }
-    stark_st8(base + row * 16, r);
-    stark_st8(base + row * 16 + 8, r + 8);
-  } else {
-    stark_st8(base + row * 8, x.v);
-  }
-}
-
-// The butterfly: (a, b, w) -> (a + b w, a - b w) mod p.
-STARK_HD void stark_butterfly(const fe& a, const fe& b, const fe& w, fe& lo,
-                              fe& hi) {
-  const fe t = fe_mul(b, w);
-  lo = fe_add(a, t);
-  hi = fe_sub(a, t);
-}
-
-STARK_HD int stark_log2(long long x) {
-  int k = 0;
-  while ((1LL << k) < x) ++k;
-  return k;
-}
-
 // Pair p of the launch (p < lead * n / 2); lp = log2(n / 2), lh =
 // log2(half), so that the divisions are shifts.
 STARK_HD void stark_ntt_pair(const stark_ntt_stage_args& g, int lp, int lh,
@@ -125,8 +89,8 @@ STARK_HD void stark_ntt_pair(const stark_ntt_stage_args& g, int lp, int lh,
   stark_butterfly(a, b, w, lo, hi);
   if (g.scale != nullptr) {
     const fe k = fe_from_le_words(g.scale);
-    lo = fe_mul(lo, k);
-    hi = fe_mul(hi, k);
+    lo = fe_mul_short(lo, k);
+    hi = fe_mul_short(hi, k);
   }
   stark_ntt_store(g.dst, t * g.n + i0, g.dst_limbs, lo);
   stark_ntt_store(g.dst, t * g.n + i1, g.dst_limbs, hi);

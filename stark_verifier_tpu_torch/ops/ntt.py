@@ -10,15 +10,18 @@ bit-identical (both are canonical mod p).
 The inverse transform follows fft_inv (fft.rs:64-86): same butterflies with
 the inverse root, then scale by n^(p-2) mod p.
 
-On the card each stage is one launch of the butterfly-stage kernel
-(csrc/ntt_stage.cu): stage 0 gathers the bit-reversed input from the
-caller's [.., n, 16] limbs (which it never writes), the stages between work
-in place on a buffer of 8 words a value, and the last stage writes the
-[.., n, 16] result, multiplied by n^-1 for the inverse.  On the CPU the same
-transform runs as its plain version (ntt_plain: the stage as the JAX
-package writes it, with the plain multiply).  Twiddle factors depend only
-on (root, n): host bigints, cached (see _card_tables and _twiddle_stages
-for what each cache holds).
+On the card a transform runs in passes of up to ten stages, one launch
+each (csrc/ntt_block.cu: a block holds sub-transforms of 2^k points in
+shared memory and runs the pass's k stages there): the first pass gathers
+the bit-reversed input from the caller's [.., n, 16] limbs (which it never
+writes), passes between work in place on a buffer of 8 words a value, and
+the last writes the [.., n, 16] result, multiplied by n^-1 for the inverse.
+2^20 points take two launches, 64 points one.  The one-stage kernel
+(csrc/ntt_stage.cu) carries the sharded NTT's cross stages (cross_stage).
+On the CPU the same transform runs as its plain version (ntt_plain: the
+stage as the JAX package writes it, with the plain multiply).  Twiddle
+factors depend only on (root, n): host bigints, cached (see _card_tables
+and _twiddle_stages for what each cache holds).
 """
 
 from __future__ import annotations
@@ -34,7 +37,11 @@ from .. import _build, debug, fp
 from . import field as F
 from . import field_cuda
 
-launches = {"ntt_stage": 0}
+launches = {"ntt_block": 0, "ntt_stage": 0}
+
+PASS_STAGES = 10   # stages a pass at most (sub-transforms of 1,024 points)
+PASS_SUBS = 2      # sub-transforms a block in later passes (runs of 2 points)
+PASS_TILE = 1024   # points a block's tile at most
 
 
 def _log2(n: int) -> int:
@@ -99,7 +106,7 @@ def _transform_root(root: int, inverse: bool, modulus: int) -> int:
 @functools.lru_cache(maxsize=8)
 def _card_tables(w: int, n: int, modulus: int, device: str):
     """(bit-reverse permutation [n] int32, the powers w^0 .. w^(n/2 - 1)
-    packed [n/2, 8] int32) on `device`: what the stage kernel reads.  At
+    packed [n/2, 8] int32) on `device`: what the kernels read.  At
     n = 2^20 that is 4 MB and 16 MB a (root, direction, device); every stage
     reads its twiddles from the one power table at a stride."""
     perm = torch.from_numpy(_bitrev_perm(n).astype(np.int32)).to(device)
@@ -178,16 +185,42 @@ def _launch(lib, stream, args: _build.NttStageArgs) -> None:
     launches["ntt_stage"] += 1
 
 
+def _launch_pass(lib, stream, args: _build.NttBlockArgs) -> None:
+    """One launch of several stages."""
+    _build.check(lib.stark_ntt_block(ctypes.byref(args), stream),
+                 "stark_ntt_block")
+    launches["ntt_block"] += 1
+
+
+def passes(count: int, n: int) -> list:
+    """[(s0, k, log2 C), ...]: the passes of the first `count` stages of an
+    n-point transform, as few as PASS_STAGES allows and balanced (2^20
+    points: 10 + 10, 2^13: 7 + 6), each with the log2 of its sub-transforms
+    a block (1 in the first pass, whose sub-transforms are contiguous).
+    chip_smoke.py times other plans beside this one on the card (PERF.md):
+    three passes of 7 stages are faster at 2^20 than two of 10, but a
+    transform of up to 2^20 points is held to two launches."""
+    m = -(-count // PASS_STAGES)
+    out, s0 = [], 0
+    for i in range(m):
+        k = count // m + (i < count % m)
+        subs = 1 if s0 == 0 else max(1, min(1 << s0, PASS_SUBS,
+                                            PASS_TILE >> k, n >> k))
+        out.append((s0, k, subs.bit_length() - 1))
+        s0 += k
+    return out
+
+
 def stages(src: torch.Tensor, perm: torch.Tensor, n: int, count: int,
            tw: torch.Tensor, scale: torch.Tensor | None = None,
            lib=None) -> torch.Tensor:
-    """The first `count` DIT stages of a transform, one kernel launch each:
-    src [lead, src_n, 16] limbs, point i of transform t read from
-    src[t, perm[i]] (perm [n] int32); tw the packed power table of the
-    transform's root (stage s reads it at stride rows / 2^s); scale, packed
-    [8] or None, multiplies the last stage's results.  Returns [lead, n, 16]
-    limbs; src is only read.  count = 0 is the gather alone (and the scale
-    through the multiply kernel)."""
+    """The first `count` DIT stages of a transform, in passes of up to
+    PASS_STAGES stages, one kernel launch each: src [lead, src_n, 16] limbs,
+    point i of transform t read from src[t, perm[i]] (perm [n] int32); tw
+    the packed power table of the transform's root (stage s reads it at
+    stride rows / 2^s); scale, packed [8] or None, multiplies the last
+    stage's results.  Returns [lead, n, 16] limbs; src is only read.  count
+    = 0 is the gather alone (and the scale through the multiply kernel)."""
     lib = lib or _build.load()
     lead, src_n = src.shape[0], src.shape[1]
     dev = src.device
@@ -196,26 +229,26 @@ def stages(src: torch.Tensor, perm: torch.Tensor, n: int, count: int,
         if scale is not None:
             out = F.mul_mod(out, F.words_le_to_limbs(scale))
         return out
+    plan = passes(count, n)
     src = _aligned(src)
     out = torch.empty((lead, n, fp.NLIMBS), dtype=torch.int32, device=dev)
     work = (torch.empty((lead, n, 8), dtype=torch.int32, device=dev)
-            if count > 1 else None)
-    rows = tw.shape[0]
-    args = _build.NttStageArgs(tw=tw.data_ptr(), lead=lead, n=n,
-                               tw_rows=rows, tw_off=0)
+            if len(plan) > 1 else None)
+    args = _build.NttBlockArgs(tw=tw.data_ptr(), lead=lead, n=n,
+                               tw_rows=tw.shape[0])
     with _on(dev):
         stream = _stream(dev)
-        for s in range(count):
-            first, last = s == 0, s == count - 1
+        for i, (s0, k, lc) in enumerate(plan):
+            first, last = i == 0, i == len(plan) - 1
             args.src = (src if first else work).data_ptr()
             args.dst = (out if last else work).data_ptr()
             args.perm = perm.data_ptr() if first else None
             args.scale = (scale.data_ptr() if last and scale is not None
                           else None)
             args.src_n = src_n if first else n
-            args.half, args.tw_stride = 1 << s, rows >> s
+            args.s0, args.k, args.lc = s0, k, lc
             args.src_limbs, args.dst_limbs = int(first), int(last)
-            _launch(lib, stream, args)
+            _launch_pass(lib, stream, args)
     return out
 
 
@@ -244,8 +277,8 @@ def cross_stage(a: torch.Tensor, b: torch.Tensor, tw: torch.Tensor, s: int,
 
 def ntt_kernel(values: torch.Tensor, root: int, inverse: bool = False,
                modulus: int = fp.MODULUS, lib=None) -> torch.Tensor:
-    """ntt through the stage kernel, one launch a stage (`lib`: the kernels'
-    library, by default the card's)."""
+    """ntt through the several-stage kernel, one launch a pass (`lib`: the
+    kernels' library, by default the card's)."""
     n = values.shape[-2]
     logn = _log2(n)
     dev = values.device
@@ -264,8 +297,9 @@ def ntt(values: torch.Tensor, root: int, inverse: bool = False,
     multiplicative order exactly n.  The inverse transform uses root^-1 (the
     reference reverses the power list, fft.rs:79-80) and scales by n^-1
     (fft.rs:82-84).  Inputs may be any values < 2^256 (stage 0 adds and
-    subtracts them raw, as the JAX package does); limbs < 2^16.  The stage
-    kernel for a CUDA tensor, the plain version for a CPU tensor."""
+    subtracts them raw, as the JAX package does); limbs < 2^16.  The
+    several-stage kernel for a CUDA tensor, the plain version for a CPU
+    tensor."""
     _log2(values.shape[-2])
     debug.check_limbs(values, "ntt input")
     if values.device.type == "cpu":

@@ -8,7 +8,8 @@ holding points [r S, (r + 1) S).  A DIT stage with butterfly distance 2^s
 is then
 
   * LOCAL when 2^(s+1) <= S: the stage of ops/ntt.py on the rank's own
-    shard (on the card one launch of the butterfly-stage kernel);
+    shard (on the card the passes of the several-stage kernel, one
+    launch for up to ten stages);
   * CROSS when 2^s >= S: every point of the shard pairs with the point at
     the same offset on rank r XOR 2^s / S, so the rank swaps its whole shard
     with that one partner (NCCL send and receive on the card; through host
@@ -70,10 +71,10 @@ def _exchange(mesh: M.Mesh, x: torch.Tensor, partner: int) -> torch.Tensor:
 def make_sharded_ntt(n: int, root: int, mesh: M.Mesh, inverse: bool = False,
                      modulus: int = fp.MODULUS, lib=None):
     """fn(values) -> this rank's [n / size, 16] slice of ntt(values, root,
-    inverse): values [n, 16] limbs, the same on every rank.  The stage
-    kernel on the card, the plain version on the CPU; the cross stages
-    exchange with one partner each.  `lib`: the library the stage launches
-    go to (the card's by default); given one, CPU ranks take the kernel
+    inverse): values [n, 16] limbs, the same on every rank.  The NTT
+    kernels on the card, the plain version on the CPU; the cross stages
+    exchange with one partner each.  `lib`: the library the launches go
+    to (the card's by default); given one, CPU ranks take the kernel
     path too, through the kernel's host build (as the tests drive it)."""
     D = mesh.size
     if n % D:

@@ -274,11 +274,13 @@ def sharded_ntt(mesh: M.Mesh, cases, seed: int = 0, values: bool = False,
     rank's slice), "gathered_equal" (gather_points' whole result),
     "seconds" (one call after a warm one), and with `values` the gathered
     result as uint32 limbs.  host_lib: the path of a host build of
-    csrc/ntt_stage.cu, through which CPU ranks take the kernel path."""
+    csrc/ntt_stage.cu and csrc/ntt_block.cu, through which CPU ranks take
+    the kernel path."""
     lib = None
     if host_lib is not None:
         lib = ctypes.CDLL(host_lib)
-        lib.stark_ntt_stage.argtypes = _build.SIGNATURES["stark_ntt_stage"]
+        for name in ("stark_ntt_stage", "stark_ntt_block"):
+            getattr(lib, name).argtypes = _build.SIGNATURES[name]
     out = []
     for n, inverse in cases:
         host = ntt_values(n, seed + n)

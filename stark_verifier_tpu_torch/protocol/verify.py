@@ -12,8 +12,8 @@ every proof of a batch through the same fixed-shape tensor program:
   * FRI rows: one kernel over all levels and queries, from the proof's
     rows and roots to a verdict a query                   (ops/fri_cuda.py)
   * 80 constraint spot checks: one kernel                (ops/spot_cuda.py)
-  * runtime round constants: an iNTT, one launch of the butterfly-stage
-    kernel a stage                                          (ops/ntt.py)
+  * runtime round constants: an iNTT, one launch of the several-stage
+    NTT kernel                                              (ops/ntt.py)
 
 Every assert of the reference becomes a boolean lane; the proof verdict is
 their AND, so a batch returns per-proof verdicts instead of panicking.

@@ -636,12 +636,17 @@ def _np32(t):
 
 
 @pytest.mark.parametrize("n,lead", [(1, (3,)), (2, (3,)), (8, ()),
-                                    (256, (3,)), (1 << 10, ())])
+                                    (256, (3,)), (1 << 10, ()), (4, (3,)),
+                                    (16, (2,)), (64, (2,)), (1 << 11, (2,)),
+                                    (1 << 12, ()), (1 << 13, (2,)),
+                                    (32, (3,)), (128, (2,)), (512, (2,))])
 def test_host_ntt_kernel_path_equals_plain(hostlib, n, lead):
-    """The card path (stage 0 gathering from the caller's limbs, in-place
-    stages on the 8-word buffer, the last writing limbs scaled by n^-1)
-    through the host build, forward and inverse, raw edge values: equal to
-    the plain version word for word; the caller's tensor is not written."""
+    """The card path (the first pass gathering from the caller's limbs,
+    passes between in place on the 8-word buffer, the last writing limbs
+    scaled by n^-1; one pass up to 2^10 points, two from 2^11) through the
+    host build, forward and inverse, raw edge values (p, p + 1, 2^256 - 1
+    among them): equal to the plain version word for word; the caller's
+    tensor is not written."""
     x = _i32(_raw(n, n, lead))
     keep = x.clone()
     for inverse in (False, True):
@@ -655,10 +660,12 @@ def test_host_ntt_round_trip_2_16(hostlib):
     n = 1 << 16
     rng = np.random.RandomState(16)
     x = _i32(rng.randint(0, 1 << 16, (n, 16)).astype(np.uint32) % 0xFFFF)
-    before = ntt.launches["ntt_stage"]
+    before = dict(ntt.launches)
     y = ntt.ntt_kernel(x, _root(n), lib=hostlib)
     back = ntt.ntt_kernel(y, _root(n), inverse=True, lib=hostlib)
-    assert ntt.launches["ntt_stage"] - before == 32
+    # two passes of 8 stages a transform (not 16 stage launches each)
+    assert ntt.launches["ntt_block"] - before["ntt_block"] == 4
+    assert ntt.launches["ntt_stage"] - before["ntt_stage"] == 0
     np.testing.assert_array_equal(_np32(back), _np32(x))
     # one output point against its Horner evaluation
     vals = [fp.limbs_to_int(r) for r in _np32(x)]
@@ -697,6 +704,91 @@ def test_host_ntt_cross_stage(hostlib):
         assert got_i == [lo, hi]
 
 
+@pytest.mark.parametrize("n,shards", [(64, 4), (1 << 12, 2)])
+def test_host_ntt_local_stages_of_a_shard(hostlib, n, shards):
+    """ops/ntt.stages as the sharded NTT runs a rank's local stages: a perm
+    slice of the whole transform's, count = log2(n / shards) < log2 n, the
+    whole transform's power table (one pass at 16 points, two at 2,048):
+    equal to the plain stages on the same gathered points."""
+    w = _root(n)
+    perm, tw = ntt._card_tables(w, n, P, "cpu")
+    x = _i32(_raw(n, n + 1))
+    s = n // shards
+    logs = s.bit_length() - 1
+    for r in range(shards):
+        got = ntt.stages(x.reshape(1, n, 16), perm[r * s:(r + 1) * s], s,
+                         logs, tw, lib=hostlib)[0]
+        want = x[perm[r * s:(r + 1) * s].long()]
+        for t in ntt._twiddle_stages(w, n, P)[:logs]:
+            want = ntt.stage_plain(want, _i32(t))
+        np.testing.assert_array_equal(_np32(got), _np32(want))
+
+
+def test_host_ntt_block_butterfly_at_edge_operands(hostlib):
+    """The pass kernel's butterfly (its 16-limb product and three folds)
+    on every pair of edge values as (b, w), each a as well: one stage of
+    2-point transforms, one transform a (a, b), against the plain stage."""
+    vals = fp.ints_to_limbs(EDGES)
+    m = len(EDGES)
+    x = _i32(np.stack([np.stack([vals[i], vals[j]]) for i in range(m)
+                       for j in range(m)]))                 # [m^2, 2, 16]
+    out = torch.empty_like(x)
+    perm = torch.arange(2, dtype=torch.int32)
+    for w in EDGES:
+        tw = _i32(np.frombuffer(w.to_bytes(32, "little"), dtype="<u4")
+                  .reshape(1, 8))
+        args = _build.NttBlockArgs(
+            src=x.data_ptr(), perm=perm.data_ptr(), tw=tw.data_ptr(),
+            scale=None, dst=out.data_ptr(), lead=m * m, n=2, src_n=2,
+            tw_rows=1, s0=0, k=1, lc=0, src_limbs=1, dst_limbs=1)
+        assert hostlib.stark_ntt_block(ctypes.byref(args), None) == 0
+        want = ntt.stage_plain(x, _i32(fp.ints_to_limbs([w])))
+        np.testing.assert_array_equal(_np32(out), _np32(want))
+
+
+def test_host_ntt_passes_plan():
+    """Launches a transform: one pass up to 2^10 points, two to 2^20
+    (balanced: 10 + 10, 7 + 6), a block C = 2 sub-transforms after the
+    first pass while its tile stays within 1,024 points."""
+    assert ntt.passes(6, 64) == [(0, 6, 0)]
+    assert ntt.passes(13, 1 << 13) == [(0, 7, 0), (7, 6, 1)]
+    assert ntt.passes(16, 1 << 16) == [(0, 8, 0), (8, 8, 1)]
+    assert ntt.passes(20, 1 << 20) == [(0, 10, 0), (10, 10, 0)]
+    assert ntt.passes(21, 1 << 21) == [(0, 7, 0), (7, 7, 1), (14, 7, 1)]
+    assert ntt.passes(1, 2) == [(0, 1, 0)]
+    assert ntt.passes(11, 1 << 11) == [(0, 6, 0), (6, 5, 1)]
+
+
+@pytest.mark.parametrize("fault", ["smem_over_limit", "n_not_pow2",
+                                   "unaligned_src", "unaligned_tw",
+                                   "pass_past_log2n", "tile_past_n",
+                                   "short_twiddles", "perm_in_place",
+                                   "in_place_two_layouts"])
+def test_host_ntt_block_rejects_bad_arguments(hostlib, fault):
+    src = torch.zeros((64, 16), dtype=torch.int32)
+    dst = torch.zeros((64, 16), dtype=torch.int32)
+    tw = torch.zeros((32, 8), dtype=torch.int32)
+    perm = torch.arange(64, dtype=torch.int32)
+    f = dict(src=src.data_ptr(), perm=None, tw=tw.data_ptr(), scale=None,
+             dst=dst.data_ptr(), lead=1, n=64, src_n=64, tw_rows=32, s0=0,
+             k=6, lc=0, src_limbs=1, dst_limbs=1)
+    assert hostlib.stark_ntt_block(
+        ctypes.byref(_build.NttBlockArgs(**f)), None) == 0
+    big = dict(n=1 << 13, src_n=1 << 13, tw_rows=1 << 12)
+    bad = {"smem_over_limit": dict(big, k=11, lc=1),    # 4,096 points
+           "n_not_pow2": dict(n=48, src_n=48),
+           "unaligned_src": dict(src=src.data_ptr() + 4),
+           "unaligned_tw": dict(tw=tw.data_ptr() + 8),
+           "pass_past_log2n": dict(s0=1),
+           "tile_past_n": dict(k=5, lc=2),
+           "short_twiddles": dict(tw_rows=16),
+           "perm_in_place": dict(perm=perm.data_ptr(), dst=src.data_ptr()),
+           "in_place_two_layouts": dict(dst=src.data_ptr(), dst_limbs=0),
+           }[fault]
+    assert hostlib.stark_ntt_block(
+        ctypes.byref(_build.NttBlockArgs(**{**f, **bad})), None) != 0
+
+
 @pytest.mark.parametrize("fault", ["half_not_pow2", "half_too_big",
                                    "twiddle_past_table", "perm_in_place",
                                    "src_n_without_perm", "unaligned"])
@@ -727,11 +819,11 @@ MIMC_INPUTS = [0, 1, 3, P - 1, P, 2**256 - 1, 2**255 + 12345, 7 * 2**200]
 
 
 @pytest.mark.parametrize("power", [3, 2])
-@pytest.mark.parametrize("steps", [0, 1, 2, 70])
+@pytest.mark.parametrize("steps", [0, 1, 2, 70, 64, 65, 66, 130])
 def test_host_mimc_scan(hostlib, power, steps):
-    """The scan kernel's per-input body, built by g++: equal to the plain
-    version on raw inputs, a wide limb and (from 70 steps on) the cycled
-    constants of a family of 64."""
+    """The scan kernel's per-input body, built by g++, with the lanes the
+    entry point chooses: equal to the plain version on raw inputs, a wide
+    limb and (from 66 steps on) the cycled constants of a family of 64."""
     x = _i32(fp.ints_to_limbs(MIMC_INPUTS))
     x[6, 15] = 0x12345                                  # a wide limb
     c = _i32(mimc.round_constants_mimc(64))
@@ -751,3 +843,62 @@ def test_host_mimc_scan_rejects_bad_arguments(hostlib):
     for at, bad in ((4, 4), (2, 0), (3, -1)):         # power, k, rounds
         assert hostlib.stark_mimc_scan(
             *args[:at], bad, *args[at + 1:]) != 0
+
+
+MIMC_EDGES = [0, 3, P - 1, P, P + 1, 2**256 - 1, 2**256 - 2**32, 2**255]
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 4])
+@pytest.mark.parametrize("power", [3, 2])
+@pytest.mark.parametrize("steps", [0, 1, 2, 64, 65, 66, 130])
+def test_host_mimc_scan_lanes(hostlib, lanes, power, steps):
+    """Each lane form of the scan (one lane a value, or 2 or 4 lanes of a
+    warp; the host build runs a group's lanes as slots), around the wrap of
+    64 constants: equal to the plain version on 0, p - 1, p, p + 1,
+    2^256 - 1 and carry patterns, with a wide limb in one input; a wide
+    limb in constant 64 (read from 66 steps on) makes every output all
+    ones, as the plain version does."""
+    x = _i32(fp.ints_to_limbs(MIMC_EDGES))
+    x[2, 9] = 0x10000                                   # a wide limb
+    c = _i32(mimc.round_constants_mimc(80))
+    for consts in (c[:64], c):
+        if consts.shape[0] == 80:
+            consts = consts.clone()
+            consts[65, 3] = 0x1FFFF                     # read from 67 steps
+        out = torch.full_like(x, 7)
+        assert hostlib.stark_mimc_scan_lanes(
+            x.data_ptr(), consts.data_ptr(), consts.shape[0],
+            max(steps - 1, 0), power, out.data_ptr(), x.shape[0], lanes,
+            None) == 0
+        np.testing.assert_array_equal(
+            out.numpy(), mimc.mimc_plain(x, steps, consts, power).numpy())
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 4])
+def test_host_mimc_scan_known_output_8192(hostlib, lanes):
+    """Input 3 through the default family's 8,191 rounds: the known output
+    (mimc_host), in each lane form."""
+    x = _i32(fp.ints_to_limbs([3]))
+    c = _i32(mimc.round_constants_mimc(64))
+    out = torch.empty_like(x)
+    assert hostlib.stark_mimc_scan_lanes(x.data_ptr(), c.data_ptr(), 64,
+                                         8191, 3, out.data_ptr(), 1, lanes,
+                                         None) == 0
+    assert fp.limbs_to_int(_np32(out)[0]) == mimc.mimc_host(3, 8192)
+
+
+def test_host_mimc_scan_lanes_rejects_bad_arguments(hostlib):
+    x = _i32(fp.ints_to_limbs([1, 2]))
+    out = torch.empty_like(x)
+    args = [x.data_ptr(), x.data_ptr(), 2, 3, 3, out.data_ptr(), 2, 4, None]
+    assert hostlib.stark_mimc_scan_lanes(*args) == 0
+    for at, bad in ((7, 3), (7, 8), (7, 0)):             # lanes
+        assert hostlib.stark_mimc_scan_lanes(
+            *args[:at], bad, *args[at + 1:]) != 0
+    many = _i32(np.zeros((7169, 16), dtype=np.uint32))  # past shared memory
+    assert hostlib.stark_mimc_scan_lanes(
+        x.data_ptr(), many.data_ptr(), 7169, 7169, 3, out.data_ptr(), 2, 1,
+        None) != 0
+    assert hostlib.stark_mimc_scan_lanes(
+        x.data_ptr(), many.data_ptr(), 7169, 7168, 3, out.data_ptr(), 2, 1,
+        None) == 0

@@ -81,12 +81,12 @@ def test_ntt_rejects_a_size_that_is_no_power_of_two():
 
 def test_ntt_products_go_through_the_multiply_dispatch(monkeypatch):
     """What the runtime-statement path's 64-point iNTT launches on the card:
-    one launch of the butterfly-stage kernel a stage (six), the first
-    reading the caller's limbs through the bit-reverse permutation, the
-    last writing limbs scaled by n^-1, the ones between in place on the
-    8-word working buffer; and no launch of the multiply kernel (the
-    products are the stage kernel's own).  Driven through the card path
-    with a library that records each launch's operands."""
+    one launch of the several-stage kernel for its six stages (not six
+    launches of the one-stage kernel), reading the caller's limbs through
+    the bit-reverse permutation and writing limbs scaled by n^-1; no launch
+    of the one-stage kernel or the multiply kernel (the products are the
+    NTT kernel's own).  Driven through the card path with a library that
+    records each launch's operands."""
     calls = []
     real = field_cuda.mul_mod
     monkeypatch.setattr(field_cuda, "mul_mod",
@@ -95,21 +95,26 @@ def test_ntt_products_go_through_the_multiply_dispatch(monkeypatch):
 
     class Recorder:
         @staticmethod
-        def stark_ntt_stage(args, stream):
+        def stark_ntt_block(args, stream):
             a = args._obj
-            seen.append((a.half, a.perm is not None, a.scale is not None,
-                         a.src_limbs, a.dst_limbs, a.src == a.dst))
+            seen.append((a.s0, a.k, a.lc, a.perm is not None,
+                         a.scale is not None, a.src_limbs, a.dst_limbs,
+                         a.src == a.dst))
             return 0
 
-    before = ntt.launches["ntt_stage"]
+        @staticmethod
+        def stark_ntt_stage(args, stream):
+            seen.append("stage")
+            return 0
+
+    before = dict(ntt.launches)
     x = _t(fp.ints_to_limbs(CONSTS))
     out = ntt.ntt_kernel(x, _root(64), inverse=True, lib=Recorder)
     assert out.shape == (64, 16) and calls == []
-    assert ntt.launches["ntt_stage"] - before == len(seen) == 6
-    assert [h for h, *_ in seen] == [1, 2, 4, 8, 16, 32]
-    assert seen[0][1:] == (True, False, 1, 0, False)        # gather in
-    assert all(r[1:] == (False, False, 0, 0, True) for r in seen[1:-1])
-    assert seen[-1][1:] == (False, True, 0, 1, False)       # n^-1, limbs out
+    assert ntt.launches["ntt_block"] - before["ntt_block"] == len(seen) == 1
+    assert ntt.launches["ntt_stage"] == before["ntt_stage"]
+    # stages 0..5 in one pass, gather in, n^-1 and limbs out
+    assert seen == [(0, 6, 0, True, True, 1, 1, False)]
 
 
 @pytest.mark.parametrize("family", ["default", "random"])

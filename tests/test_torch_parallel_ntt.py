@@ -4,7 +4,7 @@ each), forward and inverse, every rank's slice and the gathered result equal
 the one-process ntt and the oracle; at n = 256 the gathered result equals
 the JAX package's make_sharded_ntt on a 4-device mesh; and the ranks' kernel
 path (the stage launches, the cross stage, the exchanges) through the host
-build of csrc/ntt_stage.cu equals it too.  Tolerance 0."""
+build of csrc/ntt_stage.cu and csrc/ntt_block.cu equals it too.  Tolerance 0."""
 
 import shutil
 import subprocess
@@ -43,7 +43,8 @@ def world(tmp_path_factory):
         lib = tmp_path_factory.mktemp("pntt") / "libntt_host.so"
         subprocess.run([cxx, "-x", "c++", "-std=c++17", "-O2", "-shared",
                         "-fPIC", "-o", str(lib),
-                        str(_build.CSRC / "ntt_stage.cu")], check=True)
+                        str(_build.CSRC / "ntt_stage.cu"),
+                        str(_build.CSRC / "ntt_block.cu")], check=True)
         steps.append((R.sharded_ntt, dict(cases=KERNEL, host_lib=str(lib))))
     ranks = M.launch(4, R.run_steps, steps, devices="cpu", timeout_s=300)
     return [r["steps"] for r in ranks]
@@ -85,8 +86,10 @@ def test_kernel_path_on_the_ranks(world):
     for steps in world:
         assert all(r["slice_equal"] and r["gathered_equal"]
                    for r in steps[1]["result"])
-        # (64: 4 local + 2 cross; 4,096: 10 + 2) stages, twice a case
-        assert steps[1]["launches"]["ntt_stage"] == 2 * (6 + 6 + 12)
+        # (64: 4 local stages in one pass + 2 cross; 4,096: 10 in one pass
+        # + 2 cross), twice a case
+        assert steps[1]["launches"]["ntt_block"] == 2 * 3
+        assert steps[1]["launches"]["ntt_stage"] == 2 * (2 + 2 + 2)
         assert steps[0]["launches"]["ntt_stage"] == 0
 
 
