@@ -27,8 +27,7 @@ the CPU):
                  sharded NTT launches it; the several-stage NTT kernel
                  through ops/ntt.ntt at 2^6, 2^13, 2^16 and 2^20, forward
                  and inverse; the MiMC scan at 512 steps on 1,024 inputs,
-                 powers 3 and 2, and on 1 input, with the lanes it chooses
-                 and in each lane form, 1, 2 and 4), with the wrapper's
+                 powers 3 and 2, and on 1 input), with the wrapper's
                  time (CUDA events around Python calls) and its device time
                  (calls replayed from a CUDA graph) beside the least time the
                  card could take; C's device time also at fewer proofs;
@@ -95,17 +94,17 @@ the CPU):
                  11, whose profiler passes come last) -- ops/ntt.ntt at 2^20
                  (2 launches of the several-stage kernel, no other), its
                  round trip and one point against a Horner evaluation on the
-                 host, 2^13 against the oracle's FFT, the earlier transform of one
-                 stage launch a stage against the several-stage one at 2^20,
-                 2^16 and 2^13 (equal, then timed in turns), the wrapper's
-                 pass plan against others (tile sizes, three and four
-                 passes) at 2^20 and 2^16, `bench --ntt 13
-                 20` as a subprocess; the MiMC scan through
+                 host, 2^13 against the oracle's FFT, a transform of one
+                 stage-kernel launch a stage against the several-stage one
+                 at 2^20, 2^16 and 2^13 (equal, then timed in turns),
+                 `bench --ntt 13 20` as a subprocess; the MiMC scan through
                  MimcStatement.compute_output (the known output of input 3),
-                 16 inputs against the oracle at 8,192 steps, ms and cycles
-                 a round for 1, 1,024, 16,384 and 131,072 inputs in each
-                 lane form and the chosen one, in turns, the SM clock read
-                 during a scan; one STARK_DEBUG=1 pass of the first 16
+                 16 inputs against the oracle at 8,192 steps with the
+                 default 64 constants and with 8,192 (more than shared
+                 memory holds: read from their rows), a wide constant among
+                 the 8,192; ms and cycles a round for 1, 1,024, 16,384 and
+                 131,072 inputs with each family, in turns, the SM clock
+                 read during a scan; one STARK_DEBUG=1 pass of the first 16
                  proofs of phase 5, and a wide limb that raises.
 
 Each path is driven with every launch count set to 0 just before it and read
@@ -164,7 +163,6 @@ MUL_BIG = 1 << 20      # elements of the multiply's large comparison
 NTT_LOGS = (20, 16, 13, 6)  # NTT sizes held against the plain version
 NTT_STAGE = 10         # the middle stage of 2^20 timed alone
 MIMC_STEPS = 8192      # the default family's trace: 8,191 rounds
-MIMC_LANES = (1, 2, 4)  # the scan's lane forms
 MIMC_INPUTS = (1, 1024, 16384, 131072)  # inputs of the timed scans
 MIMC_OUT_3 = int("95224774355499767951968048714566316597785297695903697235"
                  "130434363122555476056")   # its output for input 3
@@ -721,10 +719,11 @@ def check_ntt(gen, ops, logn, inverse, reps):
 
 
 def per_stage_ntt(x, root, inverse=False):
-    """The earlier transform: one launch of the stage kernel a stage, the first
-    gathering from the caller's limbs, the stages between in place on the
-    8-word buffer, the last writing limbs scaled by n^-1.  Kept here, off
-    the port's path, as the yardstick of the several-stage kernel."""
+    """A transform as one launch of the stage kernel a stage (the structure
+    of the port's first NTT, on this build's butterfly): the first gathering
+    from the caller's limbs, the stages between in place on the 8-word
+    buffer, the last writing limbs scaled by n^-1.  Kept here, off the
+    port's path, as the yardstick of the several-stage kernel."""
     n = x.shape[-2]
     logn = n.bit_length() - 1
     perm, tw = ntt._card_tables(ntt._transform_root(root, inverse, P), n, P,
@@ -751,36 +750,18 @@ def per_stage_ntt(x, root, inverse=False):
 MIMC_CONSTS = [(i ** 7) ^ 42 for i in range(64)]
 
 
-def mimc_lanes(x, steps, c, power, lanes):
-    """The scan kernel in one lane form, through its C entry point (the
-    wrapper ops/mimc.mimc takes the lanes the kernel chooses)."""
-    out = torch.empty_like(x)
-    _build.check(_build.load().stark_mimc_scan_lanes(
-        x.data_ptr(), c.data_ptr(), c.shape[0], max(steps - 1, 0), power,
-        out.data_ptr(), x.shape[0], lanes,
-        torch.cuda.current_stream().cuda_stream), "stark_mimc_scan_lanes")
-    return out
-
-
-def check_mimc(gen, ops, n, steps, power=3, reps=3, lanes=None):
-    """The MiMC scan kernel against its plain version on the card: raw
-    inputs, the edge values among them, the default family's constants;
-    lanes None: through ops/mimc.mimc (the lanes the kernel chooses), else
-    that lane form."""
+def check_mimc(gen, ops, n, steps, power=3, reps=3):
+    """The MiMC scan kernel (ops/mimc.mimc) against its plain version on
+    the card: raw inputs, the edge values among them, the default family's
+    constants."""
     x = rand_limbs(gen, (n,))
     c = limbs_on_card(MIMC_CONSTS)
-
-    def call():
-        if lanes is None:
-            return mimc.mimc(x, steps, c, power)
-        return mimc_lanes(x, steps, c, power, lanes)
-
-    got = call()
+    got = mimc.mimc(x, steps, c, power)
     torch.cuda.synchronize()
     want = mimc.mimc_plain(x, steps, c, power)
-    form = "chosen lanes" if lanes is None else f"{lanes} lane(s) a value"
-    return measure(f"{n} inputs, {steps} steps, power {power}, {form}",
-                   call, lambda: mimc.mimc_plain(x, steps, c, power), [got],
+    return measure(f"{n} inputs, {steps} steps, power {power}",
+                   lambda: mimc.mimc(x, steps, c, power),
+                   lambda: mimc.mimc_plain(x, steps, c, power), [got],
                    [want], nbytes(x, c, got),
                    [(n * (steps - 1), ops[f"probe_mimc{power}"])], reps)
 
@@ -1008,15 +989,10 @@ def kernel_phase(cfg, tables, ops):
                    for logn in NTT_LOGS for inverse in (False, True)]
     # the MiMC scan kernel: 512 steps on 1,024 inputs at both powers (the
     # plain version on the card takes some 250 launches a round) and on one
-    # input, with the lanes it chooses; then each lane form at 130 steps
-    # (past the second wrap of the 64 constants)
+    # input
     mimc_cases = [check_mimc(gen, ops, 1024, 512, 3),
                   check_mimc(gen, ops, 1024, 512, 2),
                   check_mimc(gen, ops, 1, 512, 3)]
-    mimc_cases += [check_mimc(gen, ops, n, 130, power, lanes=lanes)
-                   for lanes in MIMC_LANES for n, power in ((1024, 3),
-                                                            (1024, 2),
-                                                            (1, 3))]
     per_proof = sum(c["compressions"] for c in f_cases[:2]) // b
     log(f"unshared walk: {per_proof} compressions a proof over "
         f"{len(f_main + f_fri)} groups in two launches")
@@ -2127,8 +2103,8 @@ def horner(vals, x):
 
 
 def per_stage_vs_passes(ops):
-    """The earlier transform (one stage launch a stage) against ops/ntt.ntt (one
-    launch a pass) at 2^20, 2^16 and 2^13, forward: equal, then device ms
+    """One stage-kernel launch a stage against ops/ntt.ntt (one launch a
+    pass) at 2^20, 2^16 and 2^13, forward: equal, then device ms
     (a CUDA graph of the calls) and wrapper ms in turns (per stage, passes,
     passes, per stage), each beside the transform's bound."""
     out = {"card": nvidia_smi_line()}
@@ -2158,42 +2134,6 @@ def per_stage_vs_passes(ops):
     log(f"ntt per stage vs passes (forward, in turns): {json.dumps(out)}")
 
 
-# ops/ntt's pass plans swept in phase 12: (stages a pass at most, sub-
-# transforms a block, tile points at most), the wrapper's first
-NTT_PLANS = [(10, 2, 1024), (10, 1, 1024), (10, 2, 2048), (7, 2, 1024),
-             (5, 2, 1024)]
-
-
-def pass_plans():
-    """Device ms of ops/ntt.ntt, forward, at 2^20 and 2^16 under each plan
-    of NTT_PLANS (the module's constants set for the call and restored),
-    each exact against the wrapper's own plan, the wrapper's plan again
-    last: what tile size and pass count cost."""
-    keep = (ntt.PASS_STAGES, ntt.PASS_SUBS, ntt.PASS_TILE)
-    out = {"card": nvidia_smi_line()}
-    try:
-        for logn in (20, 16):
-            n = 1 << logn
-            gen = torch.Generator(device=DEV)
-            gen.manual_seed(logn + 1)
-            x = rand_limbs(gen, (n,))
-            root = ntt_root(n)
-            want = ntt.ntt(x, root)
-            rec = {}
-            for plan in NTT_PLANS + NTT_PLANS[:1]:
-                ntt.PASS_STAGES, ntt.PASS_SUBS, ntt.PASS_TILE = plan
-                if not torch.equal(ntt.ntt(x, root), want):
-                    fail(f"ntt at 2^{logn} under plan {plan} differs")
-                rec.setdefault(str(plan), {"passes": ntt.passes(logn, n),
-                                           "device_ms": []})
-                rec[str(plan)]["device_ms"].append(device_ms(
-                    lambda: ntt.ntt(x, root), 20 if logn < 20 else 5))
-            out[f"2^{logn}"] = rec
-    finally:
-        ntt.PASS_STAGES, ntt.PASS_SUBS, ntt.PASS_TILE = keep
-    log(f"ntt pass plans (forward): {json.dumps(out)}")
-
-
 def sm_clock_during(call):
     """The SM clock (MHz, nvidia-smi) read while `call`'s launches run."""
     call()
@@ -2205,36 +2145,30 @@ def sm_clock_during(call):
     return [float(v) for v in got.strip().splitlines()[0].split(",")]
 
 
-def scan_times(c):
-    """ms of a scan of MIMC_STEPS steps at MIMC_INPUTS inputs, in each lane
-    form and with the lanes the kernel chooses, in turns; cycles a round at
+def scan_times(families):
+    """ms of a scan of MIMC_STEPS steps at MIMC_INPUTS inputs with each
+    family of constants ({name: [k, 16] limbs on the card}: staged in
+    shared memory, or read from their rows), in turns; cycles a round at
     the SM clock read during a long one-input scan."""
     gen = torch.Generator(device=DEV)
     gen.manual_seed(8192)
     many = rand_limbs(gen, (max(MIMC_INPUTS),))
-    long_steps = 400 * MIMC_STEPS
+    first = next(iter(families.values()))
     clock, clock_max = sm_clock_during(
-        lambda: mimc_lanes(many[:1], long_steps, c, 3, 1))
+        lambda: mimc.mimc(many[:1], 400 * MIMC_STEPS, first))
     out = {"card": nvidia_smi_line(), "sm_clock_mhz": clock,
            "sm_clock_max_mhz": clock_max, "steps": MIMC_STEPS}
     rounds = MIMC_STEPS - 1
     for n in MIMC_INPUTS:
         x = many[:n]
-        calls = {f"lanes_{k}": (lambda k=k: mimc_lanes(x, MIMC_STEPS, c, 3,
-                                                       k))
-                 for k in MIMC_LANES}
-        calls["chosen"] = lambda: mimc.mimc(x, MIMC_STEPS, c)
-        want = calls["lanes_1"]()
-        for key, call in calls.items():
-            if not torch.equal(call(), want):
-                fail(f"mimc at {n} inputs: {key} differs from one lane")
-        order = list(calls) + list(reversed(calls))
+        calls = {key: (lambda c=c: mimc.mimc(x, MIMC_STEPS, c))
+                 for key, c in families.items()}
         rec = {key: [] for key in calls}
-        for key in order:
+        for key in list(calls) + list(reversed(calls)):
             rec[key].append(time_ms(calls[key], 3 if n > 16384 else 5))
-        rec = {key: {"ms": v, "cycles_a_round": min(v) * 1e-3 * clock * 1e6
-                     / rounds} for key, v in rec.items()}
-        out[f"{n}_inputs"] = rec
+        out[f"{n}_inputs"] = {
+            key: {"ms": v, "cycles_a_round": min(v) * 1e-3 * clock * 1e6
+                  / rounds} for key, v in rec.items()}
     log(f"mimc scan times: {json.dumps(out)}")
 
 
@@ -2242,12 +2176,12 @@ def ntt_mimc_debug_phase(cfg, tree, want, kernels, ops):
     """Phase 12.  The standalone NTT through ops/ntt.ntt (counted: two
     launches of the several-stage kernel at 2^20, no other), against the
     oracle's FFT at 2^13, a round trip and one output point against a Horner
-    evaluation on the host at 2^20, the earlier per-stage transform against it
-    (equal, timed in turns), and `bench --ntt 13 20` as a subprocess; the
+    evaluation on the host at 2^20, one stage-kernel launch a stage against
+    it (equal, timed in turns), and `bench --ntt 13 20` as a subprocess; the
     MiMC scan through the family's compute_output (counted), against the
-    oracle on 16 inputs and the known output of input 3, and its times in
-    each lane form; a STARK_DEBUG=1 pass of the first 16 proofs of phase 5,
-    and a violation that raises."""
+    oracle on 16 inputs with 64 and with 8,192 constants and the known
+    output of input 3, and its times; a STARK_DEBUG=1 pass of the first 16
+    proofs of phase 5, and a violation that raises."""
     n = 1 << 20
     rng = np.random.RandomState(20)
     host = rng.randint(0, 1 << 16, (n, 16)).astype(np.int32)
@@ -2282,7 +2216,6 @@ def ntt_mimc_debug_phase(cfg, tree, want, kernels, ops):
         f"several-stage kernel (no other), the round trip exact, point {at} "
         f"equal to its Horner evaluation; 2^13 equal to the oracle's FFT")
     per_stage_vs_passes(ops)
-    pass_plans()
 
     rec, _ = run_json(["stark_verifier_tpu_torch.bench", "--ntt", "13", "20"],
                       "bench --ntt 13 20", timeout=600)
@@ -2309,9 +2242,26 @@ def ntt_mimc_debug_phase(cfg, tree, want, kernels, ops):
     if [fp.limbs_to_int(r) for r in got.astype(np.uint32)] != [
             oracle.mimc(v, MIMC_STEPS, consts) for v in inputs]:
         fail("the MiMC scan at 8,192 steps differs from the oracle")
+    # more constants than shared memory holds (7,168): read from their rows
+    many = [(i ** 7) ^ 42 for i in range(MIMC_STEPS)]
+    c_many = limbs_on_card(many)
+    got = mimc.mimc(limbs_on_card(inputs), MIMC_STEPS, c_many).cpu().numpy()
+    if [fp.limbs_to_int(r) for r in got.astype(np.uint32)] != [
+            oracle.mimc(v, MIMC_STEPS, many) for v in inputs]:
+        fail(f"the MiMC scan with {MIMC_STEPS} constants differs from the "
+             f"oracle")
+    wide = c_many.clone()
+    wide[8000, 0] = 0x10000
+    x3 = limbs_on_card([3])
+    if fp.limbs_to_int(mimc.mimc(x3, 8001, wide).cpu().numpy().astype(
+            np.uint32)[0]) != oracle.mimc(3, 8001, many) or not bool(
+            (mimc.mimc(x3, 8002, wide) == -1).all()):
+        fail("the MiMC scan with a wide constant 8,000 of 8,192: not exact "
+             "before it is read, or not all ones after")
     log(f"mimc: compute_output(3) = the known output; 16 inputs equal the "
-        f"oracle's at {MIMC_STEPS} steps")
-    scan_times(c)
+        f"oracle's at {MIMC_STEPS} steps with 64 and with {MIMC_STEPS} "
+        f"constants; a wide constant read gives all ones")
+    scan_times({"64_constants": c, f"{MIMC_STEPS}_constants": c_many})
 
     head = dev_io.tree_map(lambda t: t[:16], tree)
     before = os.environ.get("STARK_DEBUG")

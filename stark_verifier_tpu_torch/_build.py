@@ -93,7 +93,6 @@ SIGNATURES = {
     "stark_ntt_stage": [ctypes.POINTER(NttStageArgs), _p],
     "stark_ntt_block": [ctypes.POINTER(NttBlockArgs), _p],
     "stark_mimc_scan": [_p, _p, _ll, _ll, _i, _p, _ll, _p],
-    "stark_mimc_scan_lanes": [_p, _p, _ll, _ll, _i, _p, _ll, _i, _p],
 }
 
 _state = {"lib": None, "seconds": None, "log": ""}

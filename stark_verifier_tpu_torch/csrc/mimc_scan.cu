@@ -10,61 +10,48 @@
 // What bounds it on an H100: the chain.  Round i + 1 needs round i, so one
 // input takes `rounds` times the latency of a round, and the card's issue
 // rate bounds a launch only once tens of thousands of chains are in flight.
-// The kernel's first form took about 1.1 us a round (two canonical reductions, a
-// general product for the square, the constant reloaded from 16-limb
-// global rows each round).  The design shortens the round:
+// One thread runs one input.  The kernel's first form took about 1.1 us a
+// round (two canonical reductions, a general product for the square, the
+// constant reloaded from 16-limb global rows each round).  The design
+// shortens the round:
 //
-//   * constants out of the chain: a block stages the min(k, rounds)
-//     constants a launch reads into shared memory once, in 8-word form, and
-//     checks them for wide limbs there (__syncthreads_or); the loop reads
-//     the next constant a round ahead;
+//   * constants out of the chain: a block checks the min(k, rounds)
+//     constants a launch reads for wide limbs once (__syncthreads_or) and,
+//     when they fit (STARK_MIMC_CONSTS_MAX, 224 KB), stages them into
+//     shared memory in 8-word form; more constants are read from their
+//     global rows (the same row for every thread, so from the cache).
+//     Either way the loop reads the next constant a round ahead;
 //   * one reduction a round: x^2 by a dedicated squaring (36 products, not
 //     64), folded twice to below 2^257 and not to canonical form; x^2 x + c
 //     (or x^2 + c) then takes the round's one reduction, three folds to
 //     below 2^256.  x stays in that redundant form between rounds (every
 //     product takes any operand below 2^256) and is made canonical once,
-//     after the last round;
-//   * lanes: a value can be spread over 2 or 4 lanes of a warp (4 or 2
-//     32-bit limbs a lane).  A product then runs as `lanes` steps, each
-//     lane multiplying its limbs by a limb pair broadcast from one lane
-//     (__shfl_sync) and handing its finished columns down one lane; carries
-//     cross lanes by a ballot (the carry-lookahead of cooperative big-number
-//     libraries such as CGBN, written here from scratch).  That spreads an
-//     input's products over the lanes, at the price of shuffle latency on
-//     the chain.  stark_mimc_lanes below chooses the lanes by the number of
-//     inputs.
+//     after the last round.
 //
 // Measured on an H100 80GB HBM3 at 700 W, SM clock 1,980 MHz (chip_smoke.py
-// phase 12; the numbers in PERF.md), 8,192 steps at power 3: one lane
-// about 6.7 ms for 1 input (some 1,600 cycles a round; the first form 9.31
-// ms), the same within 1 % for 1,024 and 16,384 inputs, about 39 ms for
-// 131,072 (the issue rate's bound is about 20 ms there).  Two and four
-// lanes a value took about 14.4 and 10.8 ms for one input and 18 and 21
-// ms for 16,384: the shuffles and ballots on a round's chain cost more
-// than the products they spread.  So one lane wins at every count
-// measured, and the rule is one lane.
+// phase 12; the numbers in PERF.md), 8,192 steps at power 3: about 6.7 ms
+// for 1 input (some 1,600 cycles a round; the first form 9.31 ms), the same
+// within 1 % for 1,024 and 16,384 inputs, about 39 ms for 131,072 (the
+// issue rate's bound is about 20 ms there).  A value spread over 2 or 4
+// lanes of a warp (shuffle-broadcast products, ballot carries) was slower
+// at every count measured (PERF.md): a warp issues one instruction for all
+// its lanes, and the shuffles doubled a lane's instructions.
 //
 // Input: any value < 2^256 (the first product takes it raw); output
 // canonical after the first round, the input itself at 0 rounds.  Limbs
 // must be < 2^16: an input with a wider limb, or any constant a round reads
 // with one, gives sixteen 0xFFFFFFFF words, as kernel E does.  Bit-identical
 // with the first form and the plain version for every input (both reduce the
-// same residue to canonical form).
-//
-// The host build (g++) runs the same bodies: the one-lane form a thread at
-// a time, the lane form a group of lanes at a time, each lane's values in
-// an array slot and each shuffle or ballot a permutation of the slots.
+// same residue to canonical form).  The host build (g++) runs the same
+// bodies a thread at a time, and chooses between the staged and the global
+// constants by the same limit.
 #include "field256.cuh"
 
 #if !defined(__CUDACC__)
 #include <vector>
 #endif
 
-#define STARK_MIMC_CONSTS_MAX 7168  // constants a launch: 224 KB of shared
-
-// ---------------------------------------------------------------------------
-// one lane a value
-// ---------------------------------------------------------------------------
+#define STARK_MIMC_CONSTS_MAX 7168  // constants staged: 224 KB of shared
 
 // r[0..16) = a^2: the 28 cross products once, doubled, plus the squares.
 STARK_HD void fe_sqr_wide(const fe& a, uint32_t* r) {
@@ -175,20 +162,35 @@ STARK_HD void stark_mimc_store(uint32_t* out, const fe& x, bool wide) {
   stark_st8(out + 8, o + 8);
 }
 
-// Input i through `rounds` rounds with the kk staged constants cs.
-template <int POWER>
-STARK_HD void stark_mimc_one(const uint32_t* inp, const fe* cs, long long kk,
+// The constants a round reads: staged 8-word values (shared memory on the
+// card), or the caller's 16-limb rows, unpacked where read (their wide
+// limbs checked before the loop).
+struct stark_mimc_staged {
+  const fe* cs;
+  STARK_HD fe at(long long i) const { return cs[i]; }
+};
+struct stark_mimc_rows {
+  const uint32_t* consts;
+  STARK_HD fe at(long long i) const {
+    uint32_t wide = 0;
+    return stark_mimc_load(consts + i * 16, wide);
+  }
+};
+
+// Input i through `rounds` rounds with the kk constants of cs.
+template <int POWER, class Consts>
+STARK_HD void stark_mimc_one(const uint32_t* inp, Consts cs, long long kk,
                              long long rounds, bool cwide, uint32_t* out,
                              long long i) {
   uint32_t wide = 0;
   fe x = stark_mimc_load(inp + i * 16, wide);
   if (!wide && !cwide && rounds > 0) {
     long long ci = 0;
-    fe next = cs[0];
+    fe next = cs.at(0);
     for (long long r = 0; r < rounds; ++r) {
       const fe c = next;
       if (++ci == kk) ci = 0;
-      next = cs[ci];  // a round ahead of its use
+      next = cs.at(ci);  // a round ahead of its use
       x = stark_mimc_round<POWER>(x, c);
     }
     x = fe_canon(x);
@@ -196,416 +198,90 @@ STARK_HD void stark_mimc_one(const uint32_t* inp, const fe* cs, long long kk,
   stark_mimc_store(out + i * 16, x, wide || cwide);
 }
 
-// ---------------------------------------------------------------------------
-// TPI lanes a value (TPI = 2 or 4, LPL = 8 / TPI limbs a lane)
-// ---------------------------------------------------------------------------
-//
-// On the card a lane's quantities are its own registers (NL = 1 slot); in
-// the host build every quantity is an array of TPI slots, one a lane, and
-// every statement runs over the slots.  A quantity that all lanes share (a
-// broadcast) is a plain scalar in both.
-
-template <int TPI>
-struct mlane {
-#if defined(__CUDA_ARCH__)
-  static constexpr int NL = 1;
-#else
-  static constexpr int NL = TPI;
-#endif
-  static constexpr int LPL = 8 / TPI;
-  struct num {  // a value < 2^256: limb lane * LPL + k in v[k][slot]
-    uint32_t v[LPL][NL];
-  };
-  struct cols {  // 64-bit column sums, laid out as num
-    uint64_t v[LPL][NL];
-  };
-
-  STARK_HD static int id(int s) {
-#if defined(__CUDA_ARCH__)
-    (void)s;
-    return threadIdx.x & (TPI - 1);
-#else
-    return s;
-#endif
-  }
-  // out[lane] = v[lane + d], 0 past the top lane
-  STARK_HD static void down(const uint64_t* v, uint64_t* out, int d) {
-#if defined(__CUDA_ARCH__)
-    const uint32_t lo = __shfl_down_sync(0xFFFFFFFFu, (uint32_t)v[0], d, TPI);
-    const uint32_t hi =
-        __shfl_down_sync(0xFFFFFFFFu, (uint32_t)(v[0] >> 32), d, TPI);
-    out[0] = id(0) + d < TPI ? ((uint64_t)hi << 32 | lo) : 0;
-#else
-    for (int s = 0; s < TPI; ++s) out[s] = s + d < TPI ? v[s + d] : 0;
-#endif
-  }
-  // out[lane] = v[lane - d], 0 below lane 0
-  STARK_HD static void up(const uint64_t* v, uint64_t* out, int d) {
-#if defined(__CUDA_ARCH__)
-    const uint32_t lo = __shfl_up_sync(0xFFFFFFFFu, (uint32_t)v[0], d, TPI);
-    const uint32_t hi =
-        __shfl_up_sync(0xFFFFFFFFu, (uint32_t)(v[0] >> 32), d, TPI);
-    out[0] = id(0) >= d ? ((uint64_t)hi << 32 | lo) : 0;
-#else
-    for (int s = 0; s < TPI; ++s) out[s] = s >= d ? v[s - d] : 0;
-#endif
-  }
-  // lane src's v, in every lane
-  STARK_HD static uint64_t bcast(const uint64_t* v, int src) {
-#if defined(__CUDA_ARCH__)
-    const uint32_t lo = __shfl_sync(0xFFFFFFFFu, (uint32_t)v[0], src, TPI);
-    const uint32_t hi =
-        __shfl_sync(0xFFFFFFFFu, (uint32_t)(v[0] >> 32), src, TPI);
-    return (uint64_t)hi << 32 | lo;
-#else
-    return v[src];
-#endif
-  }
-  STARK_HD static uint32_t bcast32(const uint32_t* v, int src) {
-#if defined(__CUDA_ARCH__)
-    return __shfl_sync(0xFFFFFFFFu, v[0], src, TPI);
-#else
-    return v[src];
-#endif
-  }
-  // bit lane of the result: p of that lane
-  STARK_HD static uint32_t ballot(const bool* p) {
-#if defined(__CUDA_ARCH__)
-    const uint32_t b = __ballot_sync(0xFFFFFFFFu, p[0]);
-    return (b >> ((threadIdx.x & 31) & ~(TPI - 1))) & ((1u << TPI) - 1);
-#else
-    uint32_t b = 0;
-    for (int s = 0; s < TPI; ++s) b |= (uint32_t)p[s] << s;
-    return b;
-#endif
-  }
-
-  // a (column sums below 2^63) + cin -> 32-bit limbs r; returns the carry
-  // out of limb 7.  Each lane runs its own columns' carries, adds the lane
-  // below's carry, and the 0 / 1 carries left cross the lanes by
-  // carry-lookahead on two ballots (generate, propagate).
-  STARK_HD static uint64_t normalize(const cols& a, uint64_t cin, num& r) {
-    uint64_t c[NL], below[NL];
-    for (int s = 0; s < NL; ++s) {
-      uint64_t carry = id(s) == 0 ? cin : 0;
-#pragma unroll
-      for (int k = 0; k < LPL; ++k) {
-        const uint64_t t = a.v[k][s] + carry;
-        r.v[k][s] = (uint32_t)t;
-        carry = t >> 32;
-      }
-      c[s] = carry;
-    }
-    up(c, below, 1);
-    const uint64_t top = bcast(c, TPI - 1);
-    bool g[NL], p[NL];
-    for (int s = 0; s < NL; ++s) {
-      uint64_t carry = below[s];
-      bool ones = true;
-#pragma unroll
-      for (int k = 0; k < LPL; ++k) {
-        const uint64_t t = (uint64_t)r.v[k][s] + carry;
-        r.v[k][s] = (uint32_t)t;
-        carry = t >> 32;
-        ones = ones && r.v[k][s] == 0xFFFFFFFFu;
-      }
-      g[s] = carry != 0;
-      p[s] = ones;
-    }
-    const uint32_t gm = ballot(g), pm = ballot(p);
-    const uint32_t cm = ((gm << 1) + pm) ^ pm;  // carry into each lane
-    for (int s = 0; s < NL; ++s) {
-      uint32_t carry = (cm >> id(s)) & 1u;
-#pragma unroll
-      for (int k = 0; k < LPL; ++k) {
-        const uint64_t t = (uint64_t)r.v[k][s] + carry;
-        r.v[k][s] = (uint32_t)t;
-        carry = (uint32_t)(t >> 32);
-      }
-    }
-    return top + ((cm >> TPI) & 1u);
-  }
-
-  // lo + 2^256 hi = a * b + add (a, b, add < 2^256).  Step j: every lane
-  // multiplies its limbs by lane j's (broadcast), adds into its columns
-  // (the upper parts into `up`, the next lane's columns), hands lane 0's
-  // finished columns to lane j of the low half, and shifts the columns
-  // down one lane.
-  STARK_HD static void product(const num& a, const num& b, const num& add,
-                               num& lo, num& hi) {
-    cols acc, low;
-    uint64_t up_[LPL][NL];
-    uint32_t bb[TPI][LPL];
-#pragma unroll
-    for (int j = 0; j < TPI; ++j)
-#pragma unroll
-      for (int k = 0; k < LPL; ++k) bb[j][k] = bcast32(b.v[k], j);
-    for (int s = 0; s < NL; ++s)
-#pragma unroll
-      for (int k = 0; k < LPL; ++k) {
-        acc.v[k][s] = add.v[k][s];
-        up_[k][s] = 0;
-        low.v[k][s] = 0;
-      }
-#pragma unroll
-    for (int j = 0; j < TPI; ++j) {
-      for (int s = 0; s < NL; ++s)
-#pragma unroll
-        for (int k = 0; k < LPL; ++k)
-#pragma unroll
-          for (int k2 = 0; k2 < LPL; ++k2) {
-            const uint64_t p = (uint64_t)a.v[k][s] * bb[j][k2];
-            const int col = k + k2;
-            if (col < LPL) acc.v[col][s] += (uint32_t)p;
-            else up_[col - LPL][s] += (uint32_t)p;
-            if (col + 1 < LPL) acc.v[col + 1][s] += p >> 32;
-            else up_[col + 1 - LPL][s] += p >> 32;
-          }
-#pragma unroll
-      for (int k = 0; k < LPL; ++k) {
-        const uint64_t done = bcast(acc.v[k], 0);
-        uint64_t moved[NL];
-        down(acc.v[k], moved, 1);
-        for (int s = 0; s < NL; ++s) {
-          if (id(s) == j) low.v[k][s] = done;
-          acc.v[k][s] = moved[s] + up_[k][s];
-          up_[k][s] = 0;
-        }
-      }
-    }
-    const uint64_t c = normalize(low, 0, lo);
-    normalize(acc, c, hi);  // no carry out: a b + add < 2^512
-  }
-
-  // x + q (q = q0 + q1 2^32 + q2 2^64, column sums below 2^63, the same in
-  // every lane) -> r; returns the carry out of limb 7.
-  STARK_HD static uint64_t add_small(const num& x, uint64_t q0, uint64_t q1,
-                                     uint64_t q2, num& r) {
-    cols a;
-    for (int s = 0; s < NL; ++s)
-#pragma unroll
-      for (int k = 0; k < LPL; ++k) {
-        const int limb = id(s) * LPL + k;
-        a.v[k][s] = (uint64_t)x.v[k][s] +
-                    (limb == 0 ? q0 : limb == 1 ? q1 : limb == 2 ? q2 : 0);
-      }
-    return normalize(a, 0, r);
-  }
-
-  // lo + 2^256 hi -> a value < 2^256 congruent to it: lo + C hi (< 2^299),
-  // then r + C V for its part V above 2^256 (< 2^256 + 2^85), then + C if
-  // that carried (low part < 2^85: no further carry).
-  STARK_HD static void reduce(const num& lo, const num& hi, num& r) {
-    cols a;
-    uint64_t spill[2][NL];
-    for (int s = 0; s < NL; ++s) {
-#pragma unroll
-      for (int k = 0; k < LPL; ++k) a.v[k][s] = lo.v[k][s];
-      spill[0][s] = spill[1][s] = 0;
-#pragma unroll
-      for (int k = 0; k < LPL; ++k) {
-        const uint64_t p0 = (uint64_t)hi.v[k][s] * FE_C0;
-        const uint64_t p1 = (uint64_t)hi.v[k][s] * FE_C1;
-        const uint64_t part[3] = {(uint32_t)p0,
-                                  (p0 >> 32) + (uint32_t)p1, p1 >> 32};
-#pragma unroll
-        for (int e = 0; e < 3; ++e) {
-          if (k + e < LPL) a.v[k + e][s] += part[e];
-          else spill[k + e - LPL][s] += part[e];
-        }
-      }
-    }
-    uint64_t in[NL];
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      up(spill[e], in, 1);
-      for (int s = 0; s < NL; ++s) a.v[e][s] += in[s];
-    }
-    const uint64_t v0 = bcast(spill[0], TPI - 1);
-    const uint64_t v1 = bcast(spill[1], TPI - 1);
-    num t, u;
-    // V = the fold's part above 2^256 (< 2^43): its carry out, limb 8's
-    // column sum and limb 9's
-    const uint64_t v = normalize(a, 0, t) + v0 + (v1 << 32);
-    const uint64_t lo32 = (uint32_t)v, hi32 = v >> 32;
-    const uint64_t m00 = lo32 * FE_C0, m01 = lo32 * FE_C1;
-    const uint64_t m10 = hi32 * FE_C0, m11 = hi32 * FE_C1;
-    const uint64_t carry = add_small(
-        t, (uint32_t)m00, (m00 >> 32) + (uint32_t)m01 + (uint32_t)m10,
-        (m01 >> 32) + (m10 >> 32) + m11, u);
-    add_small(u, carry * FE_C0, carry * FE_C1, 0, r);
-  }
-
-  // x < 2^256 -> canonical: x - p = x + C - 2^256 when x + C carries.
-  STARK_HD static void canon(num& x) {
-    num u;
-    if (add_small(x, FE_C0, FE_C1, 0, u))
-      for (int s = 0; s < NL; ++s)
-#pragma unroll
-        for (int k = 0; k < LPL; ++k) x.v[k][s] = u.v[k][s];
-  }
-
-  template <int POWER>
-  STARK_HD static void round(num& x, const fe& c) {
-    num cc, zero, lo, hi;
-    for (int s = 0; s < NL; ++s)
-#pragma unroll
-      for (int k = 0; k < LPL; ++k) {
-        cc.v[k][s] = c.v[id(s) * LPL + k];
-        zero.v[k][s] = 0;
-      }
-    if constexpr (POWER == 3) {
-      num t;
-      product(x, x, zero, lo, hi);
-      reduce(lo, hi, t);
-      product(t, x, cc, lo, hi);
-    } else {
-      product(x, x, cc, lo, hi);
-    }
-    reduce(lo, hi, x);
-  }
-
-  // Input i (its lanes) through `rounds` rounds; `live`: i < n (the lanes
-  // of a group past the inputs run on zeros and store nothing, so that
-  // every lane of the warp takes part in the shuffles).
-  template <int POWER>
-  STARK_HD static void one(const uint32_t* inp, const fe* cs, long long kk,
-                           long long rounds, bool cwide, uint32_t* out,
-                           long long i, bool live) {
-    num x;
-    uint32_t wide = 0;
-    const fe in = live ? stark_mimc_load(inp + i * 16, wide) : fe{};
-    for (int s = 0; s < NL; ++s)
-#pragma unroll
-      for (int k = 0; k < LPL; ++k) x.v[k][s] = in.v[id(s) * LPL + k];
-    // uniform across the group: every lane loaded the whole input
-    if (!cwide && rounds > 0) {
-      long long ci = 0;
-      fe next = cs[0];
-      for (long long r = 0; r < rounds; ++r) {
-        const fe c = next;
-        if (++ci == kk) ci = 0;
-        next = cs[ci];
-        round<POWER>(x, c);
-      }
-      canon(x);
-    }
-    fe y;
-#if defined(__CUDA_ARCH__)
-#pragma unroll
-    for (int w = 0; w < 8; ++w)
-      y.v[w] = bcast32(x.v[w % LPL], w / LPL);
-#else
-    for (int w = 0; w < 8; ++w) y.v[w] = x.v[w % LPL][w / LPL];
-#endif
-    if (live && id(0) == 0)
-      stark_mimc_store(out + i * 16, y, wide || cwide);
-  }
-};
-
-// ---------------------------------------------------------------------------
-// kernels and the entry points
-// ---------------------------------------------------------------------------
-
-// Lanes a value for n inputs: one at every count measured (1 to 131,072
-// inputs; the note at the top).
-inline int stark_mimc_lanes(long long n) {
-  (void)n;
-  return 1;
-}
-
 #if defined(__CUDACC__)
-// Stage the kk constants a launch reads; returns whether any is wide.
-__device__ bool stark_mimc_stage(const uint32_t* consts, long long kk,
-                                 fe* cs) {
-  uint32_t wide = 0;
-  for (long long r = threadIdx.x; r < kk; r += blockDim.x)
-    cs[r] = stark_mimc_load(consts + r * 16, wide);
-  return __syncthreads_or(wide != 0) != 0;
-}
-
-template <int POWER, int TPI>
+// The kk constants a launch reads: whether any is wide; staged into cs
+// when STAGED.
+template <int POWER, bool STAGED>
 __global__ void __launch_bounds__(STARK_BLOCK)
 stark_mimc_scan_kernel(const uint32_t* __restrict__ inp,
                        const uint32_t* __restrict__ consts, long long kk,
                        long long rounds, uint32_t* __restrict__ out,
                        long long n) {
   extern __shared__ fe stark_mimc_cs[];
-  const bool cwide = stark_mimc_stage(consts, kk, stark_mimc_cs);
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if constexpr (TPI == 1) {
-    if (t < n)
-      stark_mimc_one<POWER>(inp, stark_mimc_cs, kk, rounds, cwide, out, t);
-  } else {
-    const long long i = t / TPI;
-    mlane<TPI>::template one<POWER>(inp, stark_mimc_cs, kk, rounds, cwide,
-                                    out, i, i < n);
+  uint32_t wide = 0;
+  for (long long r = threadIdx.x; r < kk; r += blockDim.x) {
+    const fe c = stark_mimc_load(consts + r * 16, wide);
+    if (STAGED) stark_mimc_cs[r] = c;
   }
+  const bool cwide = __syncthreads_or(wide != 0) != 0;
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  if (STAGED)
+    stark_mimc_one<POWER>(inp, stark_mimc_staged{stark_mimc_cs}, kk, rounds,
+                          cwide, out, i);
+  else
+    stark_mimc_one<POWER>(inp, stark_mimc_rows{consts}, kk, rounds, cwide,
+                          out, i);
 }
 
-template <int TPI>
+template <bool STAGED>
 int stark_mimc_launch(const uint32_t* pi, const uint32_t* pc, long long kk,
                       long long rounds, int power, uint32_t* po, long long n,
                       cudaStream_t st) {
-  const size_t smem = (size_t)kk * sizeof(fe);
-  auto kernel = power == 3 ? stark_mimc_scan_kernel<3, TPI>
-                           : stark_mimc_scan_kernel<2, TPI>;
-  if (smem > 48 * 1024) {
+  const size_t smem = STAGED ? (size_t)kk * sizeof(fe) : 0;
+  auto kernel = power == 3 ? stark_mimc_scan_kernel<3, STAGED>
+                           : stark_mimc_scan_kernel<2, STAGED>;
+  if (smem > 48 * 1024) {  // set for the current device at every launch
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  const long long threads = n * TPI;
-  const unsigned grid = (unsigned)((threads + STARK_BLOCK - 1) / STARK_BLOCK);
+  const unsigned grid = (unsigned)((n + STARK_BLOCK - 1) / STARK_BLOCK);
   kernel<<<grid, STARK_BLOCK, smem, st>>>(pi, pc, kk, rounds, po, n);
   return (int)cudaGetLastError();
 }
 #else
-template <int TPI>
+template <bool STAGED>
 int stark_mimc_launch(const uint32_t* pi, const uint32_t* pc, long long kk,
                       long long rounds, int power, uint32_t* po, long long n,
                       void*) {
-  std::vector<fe> cs((std::size_t)(kk > 0 ? kk : 1));
+  std::vector<fe> cs(STAGED ? (std::size_t)kk : 0);
   uint32_t wide = 0;
-  for (long long r = 0; r < kk; ++r)
-    cs[(std::size_t)r] = stark_mimc_load(pc + r * 16, wide);
+  for (long long r = 0; r < kk; ++r) {
+    const fe c = stark_mimc_load(pc + r * 16, wide);
+    if (STAGED) cs[(std::size_t)r] = c;
+  }
   const bool cwide = wide != 0;
   for (long long i = 0; i < n; ++i) {
-    if constexpr (TPI == 1) {
-      if (power == 3)
-        stark_mimc_one<3>(pi, cs.data(), kk, rounds, cwide, po, i);
-      else
-        stark_mimc_one<2>(pi, cs.data(), kk, rounds, cwide, po, i);
-    } else {
-      if (power == 3)
-        mlane<TPI>::template one<3>(pi, cs.data(), kk, rounds, cwide, po, i,
-                                    true);
-      else
-        mlane<TPI>::template one<2>(pi, cs.data(), kk, rounds, cwide, po, i,
-                                    true);
-    }
+    if (STAGED && power == 3)
+      stark_mimc_one<3>(pi, stark_mimc_staged{cs.data()}, kk, rounds, cwide,
+                        po, i);
+    else if (STAGED)
+      stark_mimc_one<2>(pi, stark_mimc_staged{cs.data()}, kk, rounds, cwide,
+                        po, i);
+    else if (power == 3)
+      stark_mimc_one<3>(pi, stark_mimc_rows{pc}, kk, rounds, cwide, po, i);
+    else
+      stark_mimc_one<2>(pi, stark_mimc_rows{pc}, kk, rounds, cwide, po, i);
   }
   return 0;
 }
 #endif
 
 // inp [n, 16] and out [n, 16] limbs, consts [k, 16] limbs (16-byte
-// aligned); out[i] = `rounds` rounds from inp[i], `lanes` lanes (1, 2 or 4)
-// a value.  Returns cudaGetLastError(), or 1 for a power other than 2 or 3,
-// k < 1, rounds < 0, other lanes, or more than STARK_MIMC_CONSTS_MAX
-// constants read.
-extern "C" int stark_mimc_scan_lanes(const void* inp, const void* consts,
-                                     long long k, long long rounds,
-                                     int power, void* out, long long n,
-                                     int lanes, void* stream) {
+// aligned); out[i] = `rounds` rounds from inp[i].  Returns
+// cudaGetLastError(), or 1 for a power other than 2 or 3, k < 1 or
+// rounds < 0.
+extern "C" int stark_mimc_scan(const void* inp, const void* consts,
+                               long long k, long long rounds, int power,
+                               void* out, long long n, void* stream) {
   const uint32_t* pi = static_cast<const uint32_t*>(inp);
   const uint32_t* pc = static_cast<const uint32_t*>(consts);
   uint32_t* po = static_cast<uint32_t*>(out);
   const long long kk = k < rounds ? k : rounds;  // the constants read
   if ((power != 2 && power != 3) || k < 1 || rounds < 0 || n < 0 ||
-      (lanes != 1 && lanes != 2 && lanes != 4) ||
-      kk > STARK_MIMC_CONSTS_MAX || !stark_aligned16(inp, 0) ||
-      !stark_aligned16(consts, 0) || !stark_aligned16(out, 0))
+      !stark_aligned16(inp, 0) || !stark_aligned16(consts, 0) ||
+      !stark_aligned16(out, 0))
     return 1;
   if (n == 0) return 0;
 #if defined(__CUDACC__)
@@ -613,17 +289,7 @@ extern "C" int stark_mimc_scan_lanes(const void* inp, const void* consts,
 #else
   void* st = stream;
 #endif
-  if (lanes == 4) return stark_mimc_launch<4>(pi, pc, kk, rounds, power, po,
-                                              n, st);
-  if (lanes == 2) return stark_mimc_launch<2>(pi, pc, kk, rounds, power, po,
-                                              n, st);
-  return stark_mimc_launch<1>(pi, pc, kk, rounds, power, po, n, st);
-}
-
-// The scan with the lanes stark_mimc_lanes chooses for n inputs.
-extern "C" int stark_mimc_scan(const void* inp, const void* consts,
-                               long long k, long long rounds, int power,
-                               void* out, long long n, void* stream) {
-  return stark_mimc_scan_lanes(inp, consts, k, rounds, power, out, n,
-                               stark_mimc_lanes(n), stream);
+  if (kk <= STARK_MIMC_CONSTS_MAX)
+    return stark_mimc_launch<true>(pi, pc, kk, rounds, power, po, n, st);
+  return stark_mimc_launch<false>(pi, pc, kk, rounds, power, po, n, st);
 }

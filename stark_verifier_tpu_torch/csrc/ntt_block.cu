@@ -43,9 +43,8 @@
 //
 // Shared memory: the tile as two planes of 16-byte halves (P x 32 bytes)
 // and two stages' twiddles (P / 2 and P / 4 x 32 bytes), so that
-// consecutive threads touch consecutive 16-byte slots: 56 KB for the
-// wrapper's tiles of 1,024 points (two blocks an SM), 112 KB at the
-// kernel's limit of 2,048.
+// consecutive threads touch consecutive 16-byte slots: 56 KB for a tile
+// of 1,024 points, the most a block takes (two blocks an SM).
 //
 // Bound on an H100: operations.  A pair costs about 400 instructions
 // (probe_butterfly of csrc/probes/work.cu) and moves nothing to global
@@ -60,7 +59,7 @@
 #include <vector>
 #endif
 
-#define STARK_NTT_TILE_MAX 2048  // points a block at most
+#define STARK_NTT_TILE_MAX 1024  // points a block at most (ops/ntt.py's plan)
 #define STARK_NTT_SMEM(p) ((long long)(p) * 56)  // bytes of a tile of p
 
 // The operands of one pass (the host's ctypes structure and the kernel's
@@ -321,14 +320,12 @@ extern "C" int stark_ntt_block(const void* args, void* stream) {
   if (blocks == 0) return 0;
   const int nt = stark_ntt_block_threads(p);
 #if defined(__CUDACC__)
-  static bool opted_in = false;  // above 48 KB only after this opt-in
-  if (!opted_in) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        stark_ntt_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)STARK_NTT_SMEM(STARK_NTT_TILE_MAX));
-    if (e != cudaSuccess) return (int)e;
-    opted_in = true;
-  }
+  // above 48 KB only after this opt-in, which holds for the current device
+  // alone: so it is set at every launch
+  const cudaError_t e = cudaFuncSetAttribute(
+      stark_ntt_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)STARK_NTT_SMEM(STARK_NTT_TILE_MAX));
+  if (e != cudaSuccess) return (int)e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   stark_ntt_block_kernel<<<(unsigned)blocks, nt, (size_t)STARK_NTT_SMEM(p),
                            st>>>(g);

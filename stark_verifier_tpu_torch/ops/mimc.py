@@ -3,10 +3,10 @@
 Reference: src/utils.rs:8-16 -- note the reference iterates steps-1 times
 (utils.rs:11), i.e. the trace has `steps` states and steps-1 transitions.
 Counterpart of the JAX package's ops/mimc.py.  mimc runs the scan on the
-device: on the card one launch of the scan kernel (csrc/mimc_scan.cu: the
-constants staged in shared memory, one reduction a round, one lane or
-several a value as the kernel chooses for the number of inputs), on the CPU
-its plain version (a loop of the plain multiply and mul_sum_mod).  The claimed output of a
+device: on the card one launch of the scan kernel (csrc/mimc_scan.cu: one
+thread an input, the constants staged in shared memory when they fit and
+read from their rows when not, one reduction a round), on the CPU its plain
+version (a loop of the plain multiply and mul_sum_mod).  The claimed output of a
 statement is a statement-level constant, so the verifiers compute it once
 on the host (mimc_host), as the JAX package's verifiers do;
 models/base.compute_output runs the scan on the device.

@@ -39,9 +39,9 @@ from . import field_cuda
 
 launches = {"ntt_block": 0, "ntt_stage": 0}
 
-PASS_STAGES = 10   # stages a pass at most (sub-transforms of 1,024 points)
-PASS_SUBS = 2      # sub-transforms a block in later passes (runs of 2 points)
-PASS_TILE = 1024   # points a block's tile at most
+_PASS_STAGES = 10  # stages a pass at most (sub-transforms of 1,024 points)
+_PASS_SUBS = 2     # sub-transforms a block in later passes (runs of 2 points)
+_PASS_TILE = 1024  # points a block's tile at most (csrc/ntt_block.cu's limit)
 
 
 def _log2(n: int) -> int:
@@ -194,18 +194,18 @@ def _launch_pass(lib, stream, args: _build.NttBlockArgs) -> None:
 
 def passes(count: int, n: int) -> list:
     """[(s0, k, log2 C), ...]: the passes of the first `count` stages of an
-    n-point transform, as few as PASS_STAGES allows and balanced (2^20
+    n-point transform, as few as _PASS_STAGES allows and balanced (2^20
     points: 10 + 10, 2^13: 7 + 6), each with the log2 of its sub-transforms
-    a block (1 in the first pass, whose sub-transforms are contiguous).
-    chip_smoke.py times other plans beside this one on the card (PERF.md):
-    three passes of 7 stages are faster at 2^20 than two of 10, but a
-    transform of up to 2^20 points is held to two launches."""
-    m = -(-count // PASS_STAGES)
+    a block (0 in the first pass, whose points are contiguous; 1 after it
+    while the tile stays within _PASS_TILE).  A transform of up to 2^20
+    points is held to two launches, although three passes of 7 stages were
+    faster at 2^20 on the card (PERF.md section 6)."""
+    m = -(-count // _PASS_STAGES)
     out, s0 = [], 0
     for i in range(m):
         k = count // m + (i < count % m)
-        subs = 1 if s0 == 0 else max(1, min(1 << s0, PASS_SUBS,
-                                            PASS_TILE >> k, n >> k))
+        subs = 1 if s0 == 0 else max(1, min(1 << s0, _PASS_SUBS,
+                                            _PASS_TILE >> k, n >> k))
         out.append((s0, k, subs.bit_length() - 1))
         s0 += k
     return out
@@ -215,7 +215,7 @@ def stages(src: torch.Tensor, perm: torch.Tensor, n: int, count: int,
            tw: torch.Tensor, scale: torch.Tensor | None = None,
            lib=None) -> torch.Tensor:
     """The first `count` DIT stages of a transform, in passes of up to
-    PASS_STAGES stages, one kernel launch each: src [lead, src_n, 16] limbs,
+    _PASS_STAGES stages, one kernel launch each: src [lead, src_n, 16] limbs,
     point i of transform t read from src[t, perm[i]] (perm [n] int32); tw
     the packed power table of the transform's root (stage s reads it at
     stride rows / 2^s); scale, packed [8] or None, multiplies the last

@@ -815,24 +815,34 @@ def test_host_ntt_stage_rejects_bad_arguments(hostlib, fault):
 # the MiMC scan kernel
 # ---------------------------------------------------------------------------
 
-MIMC_INPUTS = [0, 1, 3, P - 1, P, 2**256 - 1, 2**255 + 12345, 7 * 2**200]
+MIMC_INPUTS = [0, 1, 3, P - 1, P, 2**256 - 1, 2**255 + 12345, 7 * 2**200,
+               P + 1, 2**256 - 2**32, 2**255]
+
+
+def _scan(hostlib, x, consts, steps, power=3):
+    out = torch.full_like(x, 7)
+    assert hostlib.stark_mimc_scan(x.data_ptr(), consts.data_ptr(),
+                                   consts.shape[0], max(steps - 1, 0), power,
+                                   out.data_ptr(), x.shape[0], None) == 0
+    return out
 
 
 @pytest.mark.parametrize("power", [3, 2])
 @pytest.mark.parametrize("steps", [0, 1, 2, 70, 64, 65, 66, 130])
 def test_host_mimc_scan(hostlib, power, steps):
-    """The scan kernel's per-input body, built by g++, with the lanes the
-    entry point chooses: equal to the plain version on raw inputs, a wide
-    limb and (from 66 steps on) the cycled constants of a family of 64."""
+    """The scan kernel's per-input body, built by g++, around the wrap of
+    64 constants: equal to the plain version on raw inputs (0, p - 1, p,
+    p + 1, 2^256 - 1, carry patterns) with a wide limb in one input, for a
+    family of 64 constants and for one of 80 whose constant 65 (read from
+    67 steps on) has a wide limb, which makes every output all ones."""
     x = _i32(fp.ints_to_limbs(MIMC_INPUTS))
     x[6, 15] = 0x12345                                  # a wide limb
-    c = _i32(mimc.round_constants_mimc(64))
-    out = torch.full_like(x, 7)
-    assert hostlib.stark_mimc_scan(x.data_ptr(), c.data_ptr(), 64,
-                                    max(steps - 1, 0), power, out.data_ptr(),
-                                    x.shape[0], None) == 0
-    np.testing.assert_array_equal(out.numpy(), mimc.mimc_plain(x, steps, c,
-                                                                  power).numpy())
+    c = _i32(mimc.round_constants_mimc(80))
+    c[65, 3] = 0x1FFFF
+    for consts in (c[:64], c):
+        np.testing.assert_array_equal(
+            _scan(hostlib, x, consts, steps, power).numpy(),
+            mimc.mimc_plain(x, steps, consts, power).numpy())
 
 
 def test_host_mimc_scan_rejects_bad_arguments(hostlib):
@@ -843,62 +853,38 @@ def test_host_mimc_scan_rejects_bad_arguments(hostlib):
     for at, bad in ((4, 4), (2, 0), (3, -1)):         # power, k, rounds
         assert hostlib.stark_mimc_scan(
             *args[:at], bad, *args[at + 1:]) != 0
+    assert hostlib.stark_mimc_scan(x.data_ptr() + 4, *args[1:]) != 0
 
 
-MIMC_EDGES = [0, 3, P - 1, P, P + 1, 2**256 - 1, 2**256 - 2**32, 2**255]
-
-
-@pytest.mark.parametrize("lanes", [1, 2, 4])
-@pytest.mark.parametrize("power", [3, 2])
-@pytest.mark.parametrize("steps", [0, 1, 2, 64, 65, 66, 130])
-def test_host_mimc_scan_lanes(hostlib, lanes, power, steps):
-    """Each lane form of the scan (one lane a value, or 2 or 4 lanes of a
-    warp; the host build runs a group's lanes as slots), around the wrap of
-    64 constants: equal to the plain version on 0, p - 1, p, p + 1,
-    2^256 - 1 and carry patterns, with a wide limb in one input; a wide
-    limb in constant 64 (read from 66 steps on) makes every output all
-    ones, as the plain version does."""
-    x = _i32(fp.ints_to_limbs(MIMC_EDGES))
-    x[2, 9] = 0x10000                                   # a wide limb
-    c = _i32(mimc.round_constants_mimc(80))
-    for consts in (c[:64], c):
-        if consts.shape[0] == 80:
-            consts = consts.clone()
-            consts[65, 3] = 0x1FFFF                     # read from 67 steps
-        out = torch.full_like(x, 7)
-        assert hostlib.stark_mimc_scan_lanes(
-            x.data_ptr(), consts.data_ptr(), consts.shape[0],
-            max(steps - 1, 0), power, out.data_ptr(), x.shape[0], lanes,
-            None) == 0
-        np.testing.assert_array_equal(
-            out.numpy(), mimc.mimc_plain(x, steps, consts, power).numpy())
-
-
-@pytest.mark.parametrize("lanes", [1, 2, 4])
-def test_host_mimc_scan_known_output_8192(hostlib, lanes):
+def test_host_mimc_scan_known_output_8192(hostlib):
     """Input 3 through the default family's 8,191 rounds: the known output
-    (mimc_host), in each lane form."""
+    (mimc_host)."""
     x = _i32(fp.ints_to_limbs([3]))
-    c = _i32(mimc.round_constants_mimc(64))
-    out = torch.empty_like(x)
-    assert hostlib.stark_mimc_scan_lanes(x.data_ptr(), c.data_ptr(), 64,
-                                         8191, 3, out.data_ptr(), 1, lanes,
-                                         None) == 0
+    out = _scan(hostlib, x, _i32(mimc.round_constants_mimc(64)), 8192)
     assert fp.limbs_to_int(_np32(out)[0]) == mimc.mimc_host(3, 8192)
 
 
-def test_host_mimc_scan_lanes_rejects_bad_arguments(hostlib):
-    x = _i32(fp.ints_to_limbs([1, 2]))
-    out = torch.empty_like(x)
-    args = [x.data_ptr(), x.data_ptr(), 2, 3, 3, out.data_ptr(), 2, 4, None]
-    assert hostlib.stark_mimc_scan_lanes(*args) == 0
-    for at, bad in ((7, 3), (7, 8), (7, 0)):             # lanes
-        assert hostlib.stark_mimc_scan_lanes(
-            *args[:at], bad, *args[at + 1:]) != 0
-    many = _i32(np.zeros((7169, 16), dtype=np.uint32))  # past shared memory
-    assert hostlib.stark_mimc_scan_lanes(
-        x.data_ptr(), many.data_ptr(), 7169, 7169, 3, out.data_ptr(), 2, 1,
-        None) != 0
-    assert hostlib.stark_mimc_scan_lanes(
-        x.data_ptr(), many.data_ptr(), 7169, 7168, 3, out.data_ptr(), 2, 1,
-        None) == 0
+@pytest.mark.parametrize("k", [7168, 7169, 8192])
+def test_host_mimc_scan_constants_past_shared_memory(hostlib, k):
+    """A family of k constants, every one read and the first ones again
+    (k + 3 steps): up to 7,168 staged as in shared memory, more read from
+    their rows; equal to mimc_host."""
+    ints = [(i ** 7) ^ 42 for i in range(k)]
+    vals = [3, P - 1, 2**256 - 1]
+    out = _scan(hostlib, _i32(fp.ints_to_limbs(vals)),
+                _i32(mimc.round_constants_mimc(k)), k + 3)
+    assert [fp.limbs_to_int(r) for r in _np32(out)] == [
+        mimc.mimc_host(v, k + 3, ints) for v in vals]
+
+
+def test_host_mimc_scan_wide_constant_past_shared_memory(hostlib):
+    """8,192 constants with a wide limb in constant 8,000: all ones once a
+    round reads it (8,002 steps), the exact output while none does
+    (8,001)."""
+    consts = _i32(mimc.round_constants_mimc(8192))
+    consts[8000, 0] = 0x10000
+    ints = [(i ** 7) ^ 42 for i in range(8192)]
+    x = _i32(fp.ints_to_limbs([5]))
+    out = _scan(hostlib, x, consts, 8001)
+    assert fp.limbs_to_int(_np32(out)[0]) == mimc.mimc_host(5, 8001, ints)
+    assert (_np32(_scan(hostlib, x, consts, 8002)) == 0xFFFFFFFF).all()
