@@ -105,7 +105,20 @@ the CPU):
                  the 8,192; ms and cycles a round for 1, 1,024, 16,384 and
                  131,072 inputs with each family, in turns, the SM clock
                  read during a scan; one STARK_DEBUG=1 pass of the first 16
-                 proofs of phase 5, and a wide limb that raises.
+                 proofs of phase 5, and a wide limb that raises;
+ 13. row forms and inversions (run after phase 5) -- the cross-check forms
+                 of ops/quartic.py (eval4_inv_free, eval_interp4_nodes, its
+                 split into interp4_nodes_pre + batch_inv +
+                 interp4_nodes_finish, interp4 + eval_quartic) on kernel C's
+                 phase-3 inputs at B = 512 (two special_x set on a node) and
+                 on the 1,024-proof batch of phase 5 (204,800 row groups):
+                 every form's words equal kernel C's evaluation words at
+                 every row group, and the CPU's on the first 16 proofs;
+                 inv_mod, batch_inv (axis -2 and 0) and pow_table on a
+                 [1024, 16] input with the edge values, equal to the CPU's
+                 and to host ints; each call counted: kernel E exactly once
+                 a product, no other kernel; wall ms a form, kernel C's
+                 device ms on the same rows (`row forms ...` line).
 
 Each path is driven with every launch count set to 0 just before it and read
 just after.  The last line printed is {"ok": true, "device": {...}}; the line
@@ -145,7 +158,7 @@ from stark_verifier_tpu_torch.models.mimc import MimcStatement  # noqa: E402
 from stark_verifier_tpu_torch.models.square import SquareStatement  # noqa: E402
 from stark_verifier_tpu_torch.ops import (  # noqa: E402
     blake2s, field as F, field_cuda, fri_cuda, merkle as merkle_ops,
-    merkle_cuda, mimc, ntt, spot_cuda)
+    merkle_cuda, mimc, ntt, prg, quartic, spot_cuda)
 from stark_verifier_tpu_torch.parallel import mesh as M  # noqa: E402
 from stark_verifier_tpu_torch.parallel import rank_checks as R  # noqa: E402
 from stark_verifier_tpu_torch.proofio import (  # noqa: E402
@@ -1241,6 +1254,240 @@ def main_path(cfg, blob, tree_np, kernels):
     return fn, tree, want
 
 
+# ---------------------------------------------------------------------------
+# phase 13 (run after phase 5): the FRI row cross-check forms of
+# ops/quartic.py and the field's inversions on the card
+# ---------------------------------------------------------------------------
+
+INV_MOD_PRODUCTS = 270     # field.inv_mod: 255 squarings and 15 products
+ROW_COLLISIONS = ((0, 1, 3, 1), (20, 0, 7, 0))   # (proof, level, query, node)
+
+
+def batch_inv_products(n):
+    """Products of field.batch_inv over n values: two doubling scans of
+    ceil(log2 n) rounds, the inversion, two for the outputs."""
+    return 2 * (n - 1).bit_length() + INV_MOD_PRODUCTS + 2
+
+
+def row_form_products(q):
+    """Kernel E launches of each form on [..., L, q] row groups, one a
+    product: the forms' own, and batch_inv's over q totals (the nodes
+    form) or 4q denominators (interp4) of a (proof, level)."""
+    nodes = 15 + batch_inv_products(q)
+    return {"eval4_inv_free": 9, "eval_interp4_nodes": nodes,
+            "interp4_nodes_pre + batch_inv + finish": nodes,
+            "interp4 + eval_quartic": 22 + batch_inv_products(4 * q)}
+
+
+def weight_consts(tables, rows):
+    """wconsts and winv [4, 16] on the card: w_i = prod_{j != i}(q_i - q_j)
+    for the quartic roots q_i = G2^(i rows / 4), and their inverses, from
+    host ints."""
+    qr = [pow(tables.G2, i * rows // 4, P) for i in range(4)]
+    wc = []
+    for i in range(4):
+        w = 1
+        for j in range(4):
+            if j != i:
+                w = w * (qr[i] - qr[j]) % P
+        wc.append(w)
+    return limbs_on_card(wc), limbs_on_card([pow(w, P - 2, P) for w in wc])
+
+
+def row_operands(poly_value, ys, l_root, root2, g2_words):
+    """The forms' operands, gathered as fri_cuda.fri_rows_plain gathers
+    kernel C's: e1 = y 4^l (32-bit wrap), node k at e1 + k rows / 4, x1^-3
+    at -3 e1 and x1^3 at 3 e1, all mod rows; special_x the previous root and
+    the rows the poly values, both raw.  Returns (nodes [..., L, q, 4, 16],
+    x1cb, x1cb_inv [..., L, q, 16], ys [..., L, q, 4, 16], sx [..., L, 16])."""
+    nl, q = ys.shape[-2:]
+    rows = g2_words.shape[0]
+    mask = rows - 1
+    shift = 2 * torch.arange(nl, dtype=torch.int64, device=ys.device)
+    e1 = ((ys & 0xFFFFFFFF) << shift[:, None]) & 0xFFFFFFFF
+    g2 = F.words_le_to_limbs(g2_words)
+    k = torch.arange(4, dtype=torch.int64, device=ys.device) * (rows // 4)
+    nodes = g2[(e1[..., None] + k) & mask]
+    x1cb, x1cb_inv = g2[(3 * e1) & mask], g2[(-3 * e1) & mask]
+    prev = torch.cat([l_root[..., None, :], root2[..., :-1, :]], dim=-2)
+    rows_l = F.words_be_to_limbs(
+        poly_value.reshape(*poly_value.shape[:-2], q, 4, 8))
+    return nodes, x1cb, x1cb_inv, rows_l, F.words_be_to_limbs(prev)
+
+
+def row_forms(opnd, wc, winv):
+    """{form: call} of the four cross-check formulations, each returning
+    [..., L, q, 16] canonical limbs."""
+    nodes, x1cb, x1cb_inv, ys, sx = opnd
+
+    def split():
+        pre = quartic.interp4_nodes_pre(nodes, x1cb, wc, ys, sx)
+        return quartic.interp4_nodes_finish(pre, F.batch_inv(pre["total"]))
+
+    return {
+        "eval4_inv_free": lambda: quartic.eval4_inv_free(
+            nodes, x1cb_inv, winv, ys, sx),
+        "eval_interp4_nodes": lambda: quartic.eval_interp4_nodes(
+            nodes, x1cb, wc, ys, sx),
+        "interp4_nodes_pre + batch_inv + finish": split,
+        "interp4 + eval_quartic": lambda: quartic.eval_quartic(
+            quartic.interp4(nodes, ys), sx[..., None, :]),
+    }
+
+
+def counted_forms(what, forms, expected):
+    """Each form with every launch count set to 0 just before and read just
+    after: kernel E exactly `expected[form]` times (every product on the
+    card, none on the CPU or on the plain multiply), no other kernel.
+    Returns {form: result}."""
+    out = {}
+    for name, call in forms.items():
+        got, counts = counted(call)
+        if got.device.type != DEV.type:
+            fail(f"{what}: {name} returned a tensor on {got.device}")
+        others = {k: v for k, v in counts.items() if k != "mul_mod" and v}
+        if counts["mul_mod"] != expected[name] or others:
+            fail(f"{what}: {name} launched {counts}; expected mul_mod "
+                 f"{expected[name]} times and nothing else")
+        out[name] = got
+    return out
+
+
+def collide_rows(args, g2_words):
+    """Set special_x of each ROW_COLLISIONS (proof, level) to the given
+    node of the given query, whose rows become raw edge values; returns the
+    node's canonical y at each."""
+    poly, _, ys, lroot, root2 = args[:5]
+    rows = g2_words.shape[0]
+    want = []
+    raw = [P, 2**256 - 1, P + 1, 2**256 - 2**32]
+    for b, l, qi, k in ROW_COLLISIONS:
+        e1 = (int(ys[b, l, qi]) << (2 * l)) & 0xFFFFFFFF
+        node = F.words_le_to_limbs(g2_words[(e1 + k * rows // 4) & (rows - 1)])
+        words = F.limbs_to_words_be(node)
+        if l == 0:
+            lroot[b] = words
+        else:
+            root2[b, l - 1] = words
+        poly[b, l, 4 * qi:4 * qi + 4] = F.limbs_to_words_be(limbs_on_card(raw))
+        want.append(raw[k] % P)
+    return want
+
+
+def check_forms_against_rows(what, forms_out, lhs_words):
+    for name, got in forms_out.items():
+        words = F.limbs_to_words_be(got)
+        if not torch.equal(words, lhs_words):
+            bad = (words != lhs_words).any(dim=-1).nonzero()[:5].tolist()
+            fail(f"{what}: {name} differs from kernel C's evaluation words at "
+                 f"(proof, level, query) {bad}")
+
+
+def inversion_checks(gen):
+    """inv_mod, batch_inv along -2 and along 0, and pow_table on a [1024,
+    16] card input holding 0, 1, p - 1, p, p + 1 and 2^256 - 1: equal to
+    their CPU results and to host ints, kernel E counted exactly."""
+    x = rand_limbs(gen, (BATCH,))
+    xc = F.canon(x)
+    e = torch.randint(-2**31, 2**31, (BATCH,), generator=gen, device=DEV,
+                      dtype=torch.int64).to(torch.int32)
+    e[:4] = torch.tensor([0, 1, -1, -2**31], dtype=torch.int32)
+    calls = {
+        "inv_mod": (lambda t: F.inv_mod(t), x, INV_MOD_PRODUCTS),
+        "batch_inv": (lambda t: F.batch_inv(t), xc,
+                      batch_inv_products(BATCH)),
+        "batch_inv axis 0": (lambda t: F.batch_inv(t, axis=0),
+                             xc.view(32, -1, 16), batch_inv_products(32)),
+        "pow_table": (lambda t: F.pow_table(t[:32], e.to(t.device), 32), x,
+                      32),
+    }
+    times, ints = {}, {}
+    for name, (fn, arg, n) in calls.items():
+        got, counts = counted(lambda: fn(arg))
+        others = {k: v for k, v in counts.items() if k != "mul_mod" and v}
+        if counts["mul_mod"] != n or others:
+            fail(f"{name} on the card launched {counts}; expected mul_mod {n} "
+                 f"times and nothing else")
+        if not torch.equal(got.cpu(), fn(arg.cpu())):
+            fail(f"{name}: the card's result differs from the CPU's")
+        times[name] = {"ms": time_ms(lambda: fn(arg), 3), "launches": n}
+        ints[name] = [fp.limbs_to_int(r) for r in
+                      got.reshape(-1, 16).cpu().numpy().astype(np.uint32)]
+    xs = [fp.limbs_to_int(r) for r in x.cpu().numpy().astype(np.uint32)]
+    if ints["inv_mod"] != [pow(v % P, P - 2, P) for v in xs]:
+        fail("inv_mod on the card disagrees with host ints")
+    pw = ints["pow_table"]
+    for i in (0, 1, 2, 3, BATCH - 1):
+        want = 1
+        for bit in range(32):
+            if (int(e[i]) & 0xFFFFFFFF) >> bit & 1:
+                want = want * xs[bit] % P
+        if pw[i] != want:
+            fail(f"pow_table on the card disagrees with host ints at {i}")
+    return times
+
+
+def row_forms_phase(cfg, tables, tree):
+    """Phase 13.  (a) kernel C's phase-3 inputs at B = 512 with two
+    (proof, level)s whose special_x is a node; (b) the 1,024-proof batch of
+    phase 5.  Every form's words equal kernel C's evaluation words at every
+    row group (on the first 16 proofs of (b) also the forms on the CPU);
+    kernel E carries every product and no other kernel runs.  Then the
+    inversions on a [1024, 16] input."""
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(20261017)
+    g2_words = V._packed(tables, "g2_words", DEV)
+    wc, winv = weight_consts(tables, g2_words.shape[0])
+    q = cfg.fri_queries
+    expected = row_form_products(q)
+    consts = (tables.quartic_ginv, tables.inv4)
+
+    args, _ = fri_inputs(gen, cfg, tables, g2_words, CHUNK)
+    ys_hit = collide_rows(args, g2_words)
+    _, lhs = fri_cuda.fri_rows(*args, lhs=True)
+    for (b, l, qi, _), y in zip(ROW_COLLISIONS, ys_hit):
+        if lhs[b, l, qi].tolist() != F.limbs_to_words_be(
+                limbs_on_card(y)).tolist():
+            fail(f"kernel C at the node collision {(b, l, qi)} is not the "
+                 f"node's canonical y")
+    opnd = row_operands(args[0], args[2], args[3], args[4], g2_words)
+    out = counted_forms(f"edge inputs B={CHUNK}", row_forms(opnd, wc, winv),
+                        expected)
+    check_forms_against_rows(f"edge inputs B={CHUNK}", out, lhs)
+    log(f"row forms: edge inputs B={CHUNK}: all four forms equal kernel C's "
+        f"words at {lhs.shape[0] * lhs.shape[1] * lhs.shape[2]:,} row groups, "
+        f"node collisions {list(ROW_COLLISIONS)} give the node's y")
+
+    fri = tree["fri"]
+    moduli = V._table(tables, "level_moduli", DEV)[:, None]
+    ys = prg.pseudorandom_indices(fri["root2"], q, moduli,
+                                  cfg.extension_factor)
+    kargs = (fri["poly_value"], fri["col_value"], ys, tree["l_merkle_root"],
+             fri["root2"], g2_words) + consts
+    ok, lhs = fri_cuda.fri_rows(*kargs, lhs=True)
+    groups = ys.numel()
+    opnd = row_operands(kargs[0], ys, kargs[3], kargs[4], g2_words)
+    forms = row_forms(opnd, wc, winv)
+    out = counted_forms(f"batch {BATCH}", forms, expected)
+    check_forms_against_rows(f"batch {BATCH}", out, lhs)
+    head = tuple(t[:16].cpu() for t in opnd)
+    cpu_forms = row_forms(head, wc.cpu(), winv.cpu())
+    for name, got in out.items():
+        if not torch.equal(cpu_forms[name]().to(DEV), got[:16]):
+            fail(f"batch {BATCH}: {name} on the CPU differs on the first 16")
+    rec = {"groups": groups, "card": nvidia_smi_line(),
+           "fri_rows_device_ms": device_ms(lambda: fri_cuda.fri_rows(*kargs)),
+           "fri_rows_ok": int(ok.sum()), "forms": {}}
+    for name, call in forms.items():
+        rec["forms"][name] = {"ms": time_ms(call, 3),
+                              "mul_mod_launches": expected[name]}
+    log(f"row forms: batch {BATCH}: all four forms equal kernel C's words at "
+        f"{groups:,} row groups and the CPU's on the first 16 proofs")
+    rec["inversions"] = inversion_checks(gen)
+    log("row forms " + json.dumps(rec))
+    return rec
+
+
 def unshared_path(cfg, blob, tree_np, tree, want, kernels, consts, out):
     """Phase 6.  Returns the unshared chunked verifier."""
     fn_u, _ = V.make_chunked_verifier(cfg, 3, chunk=CHUNK,
@@ -2332,6 +2579,7 @@ def main():
     tree_np = dev_io.proof_tree(wire.parse_and_validate(blob, cfg))
 
     fn, tree, want = main_path(cfg, blob, tree_np, kernels)
+    row_forms_phase(cfg, tables, tree)
     fn_u = unshared_path(cfg, blob, tree_np, tree, want, kernels, consts, out)
     general = runtime_statement_path(cfg, blob, tree, want, kernels, consts,
                                      out)

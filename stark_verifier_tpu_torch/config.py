@@ -261,6 +261,11 @@ def cached_tables(cfg: StarkConfig) -> StatementTables:
     return StatementTables(cfg)
 
 
+def default_tables() -> StatementTables:
+    """The tables of the default statement family, StarkConfig()."""
+    return cached_tables(StarkConfig())
+
+
 # the array-valued and scalar fields tables_from_reference() expects
 _TABLE_ARRAYS = ("g2_powers", "z_table", "z2_table", "k_table",
                  "quartic_ginv", "inv4", "level_moduli_np",

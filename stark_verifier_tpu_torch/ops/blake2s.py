@@ -154,3 +154,12 @@ def hash_chain(h32: torch.Tensor) -> torch.Tensor:
     """H(x) of a 32-byte input -- the Fiat-Shamir PRG link
     (reference: src/utils.rs:70)."""
     return hash_words(h32, 32)
+
+
+def hash_root_byte(root: torch.Tensor, byte_val: int) -> torch.Tensor:
+    """H(root || [b]) of 33 bytes -- k-coefficient derivation
+    (reference: src/main.rs:131-146).  root [..., 8] words; byte_val the
+    one byte after it (0..255).  Returns [..., 8]."""
+    tail = torch.full(root.shape[:-1] + (1,), byte_val, dtype=torch.int32,
+                      device=root.device)
+    return hash_words(torch.cat([root, tail], dim=-1), 33)

@@ -26,7 +26,9 @@ the plain version for a CPU tensor.  The plain versions of the other kernels
 call field_cuda.mul_mod_plain directly, so that none of them is built on a
 kernel.  mul_sum_mod has no kernel and is plain torch on either device.
 The exponentiations and inversions (pow_const, pow2k, inv_mod, pow_table,
-batch_inv) are plain torch whose products go through mul_mod.  With
+batch_inv) are plain torch whose products go through mul_mod.  ge,
+cond_sub, mul_wide, reduce_wide and _sum_mod complete the JAX package's
+surface (ops/quartic.py's cross-check forms sum with _sum_mod).  With
 STARK_DEBUG=1 (debug.py) add_mod, sub_mod and mul_sum_mod check that their
 operands' limbs are 16-bit values, and the reduction checks its output.
 """
@@ -148,6 +150,32 @@ def canon(a: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Comparison / conditional subtract
+# ---------------------------------------------------------------------------
+
+def ge(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a >= b as integers; a, b [..., n] normalized limbs (any n).  Returns
+    [...] bool: the most significant differing limb decides (limbs read as
+    unsigned 32-bit words, as the JAX package's uint32 limbs compare)."""
+    out = None
+    for x, y in zip(_cols(a), _cols(b)):       # low limb first: the top wins
+        x, y = x & 0xFFFFFFFF, y & 0xFFFFFFFF
+        out = x >= y if out is None else torch.where(x == y, out, x > y)
+    return out
+
+
+def cond_sub(a: torch.Tensor, b: torch.Tensor,
+             cond: torch.Tensor) -> torch.Tensor:
+    """Where cond, a - b mod 2^(16n) (requires a >= b), else a; a, b
+    [..., n] normalized limbs, cond [...] bool.  The difference is
+    a + ~b + 1 with the carry past the top limb dropped."""
+    cols = [x + (MASK - y) for x, y in zip(_cols(a), _cols(b))]
+    cols[0] = cols[0] + 1
+    d = _limbs(_carry(cols, len(cols)))
+    return torch.where(cond[..., None], d, a)
+
+
+# ---------------------------------------------------------------------------
 # Add / sub mod p
 # ---------------------------------------------------------------------------
 
@@ -217,7 +245,7 @@ def _fold_once(limbs: list) -> list:
     return _carry(cols, n)
 
 
-def _reduce_cols(cols: list, canonical: bool = True) -> torch.Tensor:
+def _reduce_cols(cols: list) -> torch.Tensor:
     """Reduce int64 product/sum columns (any width, non-negative total
     < 2^544) to [..., 16] canonical limbs mod p."""
     limbs = _carry(cols, max(len(cols) + 3, NLIMBS + 1))
@@ -233,6 +261,54 @@ def _reduce_cols(cols: list, canonical: bool = True) -> torch.Tensor:
     r = _limbs(_select(u[NLIMBS] > 0, u[:NLIMBS], v))
     debug.check_limbs(r, "_reduce_cols canonical output")
     return r
+
+
+def mul_wide(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Full 512-bit product of two 256-bit values: [..., 16] x [..., 16] ->
+    [..., 32] normalized limbs."""
+    return _limbs(_carry(list(_mul_acc(a, b).unbind(-1)), 2 * NLIMBS))
+
+
+def _acc_mul_c(acc: list, m: list) -> None:
+    """acc[k .. k + len(m)] += C * m, in place in the list, for unnormalized
+    int64 columns m, with the JAX package's split of the partial products:
+    C's limb k times m's low 16 bits lands in two halves at columns k and
+    k + 1, times m's high bits whole at column k + 1.  The split decides
+    which column holds which part of the value, and the next fold cuts the
+    columns at limb 16, so the lazy result of reduce_wide depends on it."""
+    for k, c in enumerate(_C16):
+        for j, x in enumerate(m):
+            p = (x & MASK) * c
+            acc[k + j] = acc[k + j] + (p & MASK)
+            acc[k + j + 1] = acc[k + j + 1] + (p >> 16) + (x >> 16) * c
+
+
+def reduce_wide(w: torch.Tensor, canonical: bool = True) -> torch.Tensor:
+    """Reduce [..., 32] limbs (< 2^512, normalized or unnormalized, each
+    < 2^21) to [..., 16] using 2^256 === C (mod p), C = 351*2^32 - 1.
+
+    canonical=True returns the value in [0, p).  canonical=False returns a
+    residue below 2^256, which may lie in [p, 2^256): it follows the JAX
+    package's fold chain step for step (two folds on unnormalized columns,
+    lo + C*hi and then its top four columns, one carry, a third fold of the
+    carried top limb, and that fold's own 2^256 bit folded once more), so
+    its bits are the JAX package's."""
+    if canonical:
+        return _reduce_cols(_cols(w))
+    cols = _cols(w)
+    zero = torch.zeros_like(cols[0])
+    acc = cols[:NLIMBS] + [zero] * 4                       # fold 1: 20 columns
+    _acc_mul_c(acc, cols[NLIMBS:])
+    acc2 = acc[:NLIMBS] + [zero]                           # fold 2: 17 columns
+    _acc_mul_c(acc2, acc[NLIMBS:])
+    t = _carry(acc2, NLIMBS + 1)
+    v = t[:NLIMBS] + [zero]                                # fold 3
+    _acc_mul_c(v, t[NLIMBS:])
+    vn = _carry(v, NLIMBS + 1)
+    top = vn[NLIMBS]
+    return _limbs(_carry(
+        [x + top * _C16[i] if i < 3 else x for i, x in enumerate(vn[:NLIMBS])],
+        NLIMBS))
 
 
 def mul_mod(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -424,3 +500,19 @@ def eval_poly(coeffs: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     for c in rev[1:]:
         acc = mul_sum_mod([(acc, x)], extra=[c.expand(x.shape)])
     return acc
+
+
+def _sum_mod(terms: torch.Tensor, axis: int = -2) -> torch.Tensor:
+    """Modular sum of canonical values along an axis: a tree of add_mod,
+    halves added pairwise, an odd last element carried to the next round
+    as it is (the JAX package's order, hence its bits on raw inputs)."""
+    if axis != -2:
+        terms = terms.movedim(axis, -2)
+    while terms.shape[-2] > 1:
+        k = terms.shape[-2]
+        half = k // 2
+        s = add_mod(terms[..., :half, :], terms[..., half:2 * half, :])
+        if k % 2:
+            s = torch.cat([s, terms[..., -1:, :]], dim=-2)
+        terms = s
+    return terms[..., 0, :]

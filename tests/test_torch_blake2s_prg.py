@@ -78,6 +78,20 @@ def test_pair_hashes(vw):
             np.asarray(JB.hash_chain(jnp.asarray(a))))
 
 
+@pytest.mark.parametrize("byte_val", [0, 1, 4, 0x80, 0xFF])
+def test_hash_root_byte(byte_val):
+    """H(root || [b]), 33 bytes: the k-coefficient hash (6 roots, the shape
+    test_hash_words[33] gives JAX's eager hash)."""
+    by = _messages(32, 33)
+    roots = by.view("<u4").astype(np.uint32)                 # [6, 8]
+    got = _n(B.hash_root_byte(_t(roots), byte_val))
+    np.testing.assert_array_equal(
+        got, np.asarray(JB.hash_root_byte(jnp.asarray(roots), byte_val)))
+    for i in range(roots.shape[0]):
+        assert got[i].tobytes() == hashlib.blake2s(
+            roots[i].tobytes() + bytes([byte_val])).digest()
+
+
 def _seeds():
     rng = np.random.RandomState(77)
     s = rng.randint(0, 256, (4, 32)).astype(np.uint8)

@@ -177,18 +177,62 @@ def test_mul_sum_mod_broadcast_pairs():
 
 
 # ---------------------------------------------------------------------------
-# exponentiation and inversion (products through mul_mod), against the JAX
-# package's namesakes.  The JAX inversion chain costs seconds to compile, so
-# everything is compiled once, in one jitted call: batch_inv (whose every
-# nonzero output is JAX's inv_mod of its input), pow_table, neg_mod and
-# pow_const.
+# exponentiation and inversion (products through mul_mod), comparison,
+# conditional subtract, wide products and reductions and the modular sum,
+# against the JAX package's namesakes.  The JAX inversion chain costs seconds
+# to compile, and eager JAX compiles every op of a new shape, so everything
+# is compiled once, in one jitted call: batch_inv (whose every nonzero output
+# is JAX's inv_mod of its input), pow_table, neg_mod, pow_const, ge,
+# cond_sub, mul_wide, reduce_wide (both modes) and _sum_mod.
 # ---------------------------------------------------------------------------
 
 POW_EXPONENTS = (0, 1, 13)
+GE_WIDTHS = (16, 3)
+SUM_COUNTS = (1, 2, 3, 5, 8)
+
+
+def _wide(vals, width=32):
+    """Python ints -> [n, width] normalized limbs."""
+    return np.array([[(v >> (16 * i)) & 0xFFFF for i in range(width)]
+                     for v in vals], dtype=np.uint32)
+
+
+def _int_of(row):
+    return sum(int(x) << (16 * i) for i, x in enumerate(row))
+
+
+def _ge_operands(width):
+    """Pairs of [n, width]-limb integers: random, equal, off by the low limb,
+    off by the top bit, zero, the top of the range."""
+    rng = random.Random(11 + width)
+    top = 1 << (16 * width)
+    xs = [rng.randrange(top) for _ in range(12)] + [0, top - 1, 5, 5]
+    ys = [rng.randrange(top) for _ in range(12)] + [0, 0, 5, 4]
+    xs[1] = ys[1] ^ 1
+    xs[2] = ys[2] ^ (1 << (16 * width - 1))
+    return xs, ys
+
+
+def _wide_operands():
+    """Reduction inputs: p^2 (whose lazy residue lies in [p, 2^256), not the
+    canonical value), products of edge values, the top of the range, and
+    unnormalized columns up to 2^21 - 1."""
+    rng = random.Random(14)
+    vals = [P * P, 0, 1, P * (P - 1), (P - 1) ** 2, P * P - 1, 2**512 - 1,
+            (2**256 - 1) ** 2] + [rng.randrange(1 << 512) for _ in range(24)]
+    cols = np.random.RandomState(15).randint(0, 1 << 21, (16, 32))
+    cols[0] = (1 << 21) - 1
+    cols[1, :16] = 0
+    return np.concatenate([_wide(vals), cols.astype(np.uint32)])
+
+
+def _sum_operands(n):
+    vals = [v % P for v in _vals(20 + n, 3 * n + 6)[6:]]
+    return vals, _np(vals).reshape(3, n, 16)
 
 
 @pytest.fixture(scope="module")
-def inversions():
+def jax_ref():
     import jax
 
     rows = _np([v % P for v in _vals(31)]).reshape(3, 8, 16).copy()
@@ -198,31 +242,45 @@ def inversions():
     table = fp.pow2_table(base, 32)
     e = np.array([0, 1, 5, 0xFFFFFFFF, 0x80000000, 123456789],
                  dtype=np.uint32)
-    def jax_side(r, t, x):
-        return (JF.batch_inv(r), JF.pow_table(t, x, 32), JF.neg_mod(r[0]),
-                [JF.pow_const(r[0], k) for k in POW_EXPONENTS])
+    ge_in = {w: tuple(_wide(v, w) for v in _ge_operands(w))
+             for w in GE_WIDTHS}
+    mw = (_np(_vals(12)), _np(list(reversed(_vals(13)))))
+    sums = {n: _sum_operands(n)[1] for n in SUM_COUNTS}
 
-    jinv, jpow, jneg, jpows = jax.jit(jax_side)(
-        jnp.asarray(rows), jnp.asarray(table), jnp.asarray(e))
-    return {"rows": rows, "table": table, "e": e, "base": base,
-            "batch_inv": np.asarray(jinv), "pow_table": np.asarray(jpow),
-            "neg_mod": np.asarray(jneg),
-            "pow_const": [np.asarray(x) for x in jpows]}
+    def jax_side(r, t, x, ge_in, mw, w, sums):
+        ge = {k: JF.ge(a, b) for k, (a, b) in ge_in.items()}
+        return {
+            "batch_inv": JF.batch_inv(r), "pow_table": JF.pow_table(t, x, 32),
+            "neg_mod": JF.neg_mod(r[0]),
+            "pow_const": [JF.pow_const(r[0], k) for k in POW_EXPONENTS],
+            "ge": ge,
+            "cond_sub": {k: JF.cond_sub(a, b, ge[k])
+                         for k, (a, b) in ge_in.items()},
+            "mul_wide": JF.mul_wide(*mw),
+            "reduce_wide": {c: JF.reduce_wide(w, canonical=c)
+                            for c in (True, False)},
+            "_sum_mod": {n: JF._sum_mod(v) for n, v in sums.items()},
+        }
+
+    out = jax.tree_util.tree_map(np.asarray, jax.jit(jax_side)(
+        rows, table, e, ge_in, mw, _wide_operands(), sums))
+    out.update({"rows": rows, "table": table, "e": e, "base": base})
+    return out
 
 
-def test_neg_and_pow_const_vs_jax(inversions):
-    v = inversions["rows"][0]
+def test_neg_and_pow_const_vs_jax(jax_ref):
+    v = jax_ref["rows"][0]
     np.testing.assert_array_equal(_n(F.neg_mod(_t(v))),
-                                  inversions["neg_mod"])
+                                  jax_ref["neg_mod"])
     assert _ints(_n(F.neg_mod(_t(v)))) == [-x % P for x in _ints(v)]
-    for k, want in zip(POW_EXPONENTS, inversions["pow_const"]):
+    for k, want in zip(POW_EXPONENTS, jax_ref["pow_const"]):
         got = _n(F.pow_const(_t(v), k))
         np.testing.assert_array_equal(got, want)
         assert _ints(got) == [pow(x, k, P) for x in _ints(v)]
 
 
-def test_inv_mod_vs_jax(inversions):
-    rows, want = inversions["rows"], inversions["batch_inv"]
+def test_inv_mod_vs_jax(jax_ref):
+    rows, want = jax_ref["rows"], jax_ref["batch_inv"]
     got = _n(F.inv_mod(_t(rows)))
     np.testing.assert_array_equal(got, want)          # 0 -> 0 on both sides
     assert _ints(got) == [pow(x, P - 2, P) for x in _ints(rows)]
@@ -231,16 +289,60 @@ def test_inv_mod_vs_jax(inversions):
     assert _ints(_n(F.pow2k(_t(_np([3])), 5))) == [pow(3, 32, P)]
 
 
-def test_batch_inv_vs_jax(inversions):
-    rows, want = inversions["rows"], inversions["batch_inv"]
+def test_batch_inv_vs_jax(jax_ref):
+    rows, want = jax_ref["rows"], jax_ref["batch_inv"]
     np.testing.assert_array_equal(_n(F.batch_inv(_t(rows))), want)
     moved = np.ascontiguousarray(np.moveaxis(rows, 1, 0))
     np.testing.assert_array_equal(_n(F.batch_inv(_t(moved), axis=0)),
                                   np.moveaxis(want, 1, 0))
 
 
-def test_pow_table_vs_jax(inversions):
-    d = inversions
+def test_pow_table_vs_jax(jax_ref):
+    d = jax_ref
     got = _n(F.pow_table(_t(d["table"]), _t(d["e"]), 32))
     np.testing.assert_array_equal(got, d["pow_table"])
     assert _ints(got) == [pow(d["base"], int(x), P) for x in d["e"]]
+
+
+@pytest.mark.parametrize("width", GE_WIDTHS)
+def test_ge_and_cond_sub(jax_ref, width):
+    xs, ys = _ge_operands(width)
+    a, b = _wide(xs, width), _wide(ys, width)
+    got = F.ge(_t(a), _t(b))
+    assert got.dtype == torch.bool
+    np.testing.assert_array_equal(got.numpy(), jax_ref["ge"][width])
+    assert got.tolist() == [x >= y for x, y in zip(xs, ys)]
+    d = _n(F.cond_sub(_t(a), _t(b), got))
+    np.testing.assert_array_equal(d, jax_ref["cond_sub"][width])
+    assert [_int_of(r) for r in d] == [x - y if x >= y else x
+                                       for x, y in zip(xs, ys)]
+
+
+def test_mul_wide(jax_ref):
+    xs, ys = _vals(12), list(reversed(_vals(13)))
+    got = _n(F.mul_wide(_t(_np(xs)), _t(_np(ys))))
+    assert got.shape == (len(xs), 32)
+    np.testing.assert_array_equal(got, jax_ref["mul_wide"])
+    assert [_int_of(r) for r in got] == [x * y for x, y in zip(xs, ys)]
+
+
+@pytest.mark.parametrize("canonical", [True, False])
+def test_reduce_wide(jax_ref, canonical):
+    """Both modes bit for bit against JAX (_wide_operands)."""
+    w = _wide_operands()
+    got = _n(F.reduce_wide(_t(w), canonical=canonical))
+    np.testing.assert_array_equal(got, jax_ref["reduce_wide"][canonical])
+    for row, r in zip(w, got):
+        assert _int_of(r) % P == _int_of(row) % P
+        assert _int_of(r) < (P if canonical else 2**256)
+    assert (_int_of(got[0]) >= P) is not canonical       # p^2
+
+
+@pytest.mark.parametrize("n", SUM_COUNTS)
+def test_sum_mod(jax_ref, n):
+    vals, x = _sum_operands(n)
+    want = jax_ref["_sum_mod"][n]
+    np.testing.assert_array_equal(_n(F._sum_mod(_t(x))), want)
+    moved = np.ascontiguousarray(np.moveaxis(x, 1, 0))
+    np.testing.assert_array_equal(_n(F._sum_mod(_t(moved), axis=0)), want)
+    assert _ints(want) == [sum(vals[i * n:(i + 1) * n]) % P for i in range(3)]

@@ -74,6 +74,19 @@ def test_tables_from_reference():
         C.tables_from_reference(arrays, cfg)
 
 
+def test_default_tables_equal_the_jax_packages():
+    from stark_verifier_tpu.config import default_tables as jax_default
+
+    mine, ref = C.default_tables(), jax_default()
+    assert mine is C.cached_tables(C.StarkConfig())       # memoized
+    assert mine.cfg == C.StarkConfig() and mine.cfg.log_steps == 13
+    for name in C._TABLE_ARRAYS:
+        np.testing.assert_array_equal(getattr(mine, name),
+                                      np.asarray(getattr(ref, name)), name)
+    for name in C._TABLE_SCALARS + ("G2", "minipoly_root"):
+        assert getattr(mine, name) == getattr(ref, name), name
+
+
 def test_config_pins_extension_factor():
     with pytest.raises(ValueError):
         C.StarkConfig(extension_factor=4)
