@@ -1,0 +1,8 @@
+"""latency_p95_ms: the 95th percentile over all requests of the window of
+the time from the call to the verdict on the host."""
+
+from benchmark.window import percentile
+
+
+def read(run):
+    return percentile(run.latencies, 95) * 1e3 if run.latencies else None
