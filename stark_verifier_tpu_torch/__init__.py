@@ -30,19 +30,33 @@ def verify_proof_bytes(proof_bytes: bytes, inp: int = 3,
     protocol.verify.make_verifier directly.
     """
     from .config import StarkConfig
+    from .profiling import span
     from .proofio import wire, device as dev_io
     from .protocol import verify as V
 
     dev = dev_io.resolve_device(device)
     cfg = StarkConfig(log_steps=log_steps, strict=strict)
-    try:
-        host_tree = dev_io.proof_tree(wire.parse_and_validate(proof_bytes, cfg))
-    except wire.WireFormatError:
-        return False
-    fn, _ = V.make_verifier(cfg, inp=inp,
-                            shared_merkle=dev_io.is_rectangular(host_tree),
-                            device=dev)
-    return bool(fn(dev_io.to_device(host_tree, dev)).item())
+    with span("entry", proofs=1):
+        try:
+            with span("entry.parse"):
+                host_tree = dev_io.proof_tree(
+                    wire.parse_and_validate(proof_bytes, cfg))
+        except wire.WireFormatError:
+            return False
+        with span("entry.lookup") as sp:
+            misses = V._make_verifier_cached.cache_info().misses if sp \
+                else 0
+            fn, _ = V.make_verifier(
+                cfg, inp=inp, shared_merkle=dev_io.is_rectangular(host_tree),
+                device=dev)
+            if sp:
+                sp.set(built=V._make_verifier_cached.cache_info().misses
+                       > misses)
+        with span("entry.h2d"):
+            tree = dev_io.to_device(host_tree, dev)
+        verdict = fn(tree)
+        with span("entry.wait"):
+            return bool(verdict.item())
 
 
 def verify_mimc(inp, num_steps, round_constants, output, proofs,

@@ -19,6 +19,8 @@ import subprocess
 import time
 from pathlib import Path
 
+from .profiling import span
+
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
@@ -173,13 +175,16 @@ def load() -> ctypes.CDLL:
     been built here before."""
     if _state["lib"] is not None:
         return _state["lib"]
-    t0 = time.perf_counter()
-    out = library_path()
-    if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        _state["log"] = _compile(find_nvcc(), out)
-    _state["lib"] = declare(ctypes.CDLL(str(out)))
-    _state["seconds"] = time.perf_counter() - t0
+    with span("build.load") as sp:
+        t0 = time.perf_counter()
+        out = library_path()
+        built = not out.exists()
+        if built:
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            _state["log"] = _compile(find_nvcc(), out)
+        _state["lib"] = declare(ctypes.CDLL(str(out)))
+        _state["seconds"] = time.perf_counter() - t0
+        sp.set(built=built)
     return _state["lib"]
 
 

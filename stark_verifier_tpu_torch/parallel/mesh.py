@@ -52,6 +52,7 @@ import torch.distributed as dist
 
 from .. import _build, native
 from ..config import StarkConfig
+from ..profiling import NO_SPAN, span
 from ..proofio import device as pdevice
 from ..proofio import ingest
 from ..proofio import static_layout as SL
@@ -512,12 +513,14 @@ class _Slot:
         copy is asynchronous, from pinned memory, on `copy_stream`; the
         current (compute) stream waits on its event."""
         if dev.type != "cuda":
-            return pdevice.tree_map(lambda h: h[:n], host)
+            with span("stream.stage"):
+                return pdevice.tree_map(lambda h: h[:n], host)
         compute = torch.cuda.current_stream(dev)
         shapes = pdevice.tree_map(lambda h: tuple(h.shape), host)
-        with torch.cuda.stream(copy_stream):
-            if self.dev is None or pdevice.tree_map(
-                    lambda d: tuple(d.shape), self.dev) != shapes:
+        with span("stream.stage") as sp, torch.cuda.stream(copy_stream):
+            new = self.dev is None or pdevice.tree_map(
+                lambda d: tuple(d.shape), self.dev) != shapes
+            if new:
                 # new buffers: the allocator may hand back memory that the
                 # compute stream still reads, so wait for all of it first
                 copy_stream.wait_stream(compute)
@@ -530,6 +533,7 @@ class _Slot:
                              self.dev, host)
             self.copied = torch.cuda.Event()
             self.copied.record(copy_stream)
+            sp.set(new_buffers=new)
         compute.wait_event(self.copied)
         return pdevice.tree_map(lambda d: d[:n], self.dev)
 
@@ -604,8 +608,9 @@ def verify_stream(proof_blobs, chunk: int | None = None,
             pin=on_card)
         return tree, ok
 
-    def verify_tree(slot, tree, n):
+    def verify_tree(slot, tree, n, sp=NO_SPAN):
         rect = pdevice.is_rectangular(pdevice.tree_map(lambda t: t[:n], tree))
+        sp.set(walk="shared" if rect else "independent")
         fn, _ = V.make_verifier(vcfg, inp, shared_merkle=rect, device=dev)
         verdicts = fn(slot.stage(tree, n, dev, copy_stream))
         slot.release(dev)
@@ -620,65 +625,80 @@ def verify_stream(proof_blobs, chunk: int | None = None,
             return np.zeros(len(blobs), dtype=bool)
         return verify_tree(fb, tree, len(blobs)).cpu().numpy() & ok
 
-    def prepare(slot, blobs):
+    def prepare(cid, slot, blobs):
         """Worker thread: fill the slot's host buffers for a chunk."""
         if not blobs:                          # a rank's empty part
             return None
-        slot.wait_copied()
-        if not device_parse:
-            return host_tree(slot, blobs, pad_to=rows)
-        if slot.pack is None:
-            slot.pack = torch.zeros((rows, lay.words), dtype=torch.int32,
-                                    pin_memory=on_card)
-        return lay.pack(blobs, out=slot.pack)[1]
+        with span("stream.prepare", chunk=cid, proofs=len(blobs)):
+            with span("stream.wait_slot"):
+                slot.wait_copied()
+            if not device_parse:
+                return host_tree(slot, blobs, pad_to=rows)
+            with span("stream.pack"):
+                if slot.pack is None:
+                    slot.pack = torch.zeros((rows, lay.words),
+                                            dtype=torch.int32,
+                                            pin_memory=on_card)
+                return lay.pack(blobs, out=slot.pack)[1]
 
     def dispatch(c):
         """Main thread: copy and launch a prepared chunk.  Returns the
         pending descriptor, or the chunk's verdicts when nothing in it
         parsed."""
         cid, idxs, lo, blobs, slot, fut = c
-        prepared = fut.result()
         n = len(blobs)
-        if n == 0:
-            return ("done", cid, idxs, lo, np.zeros(0, dtype=bool))
-        if not device_parse:
-            tree, ok = prepared
-            if tree is None:                   # nothing parseable
-                return ("done", cid, idxs, lo, np.zeros(n, dtype=bool))
-            return ("host", cid, idxs, lo, ok, verify_tree(slot, tree, n))
-        fn, _ = SL.make_blob_verifier(vcfg, inp, device=dev)
-        verdicts, shape_ok = fn(slot.stage(slot.pack, n, dev, copy_stream))
-        slot.release(dev)
-        return ("dev", cid, idxs, lo, blobs, prepared, verdicts, shape_ok)
+        with span("stream.dispatch", chunk=cid, proofs=n) as sp:
+            with span("stream.wait_prepared"):
+                prepared = fut.result()
+            if n == 0:
+                return ("done", cid, idxs, lo, np.zeros(0, dtype=bool))
+            if not device_parse:
+                tree, ok = prepared
+                if tree is None:                   # nothing parseable
+                    return ("done", cid, idxs, lo, np.zeros(n, dtype=bool))
+                return ("host", cid, idxs, lo, ok,
+                        verify_tree(slot, tree, n, sp))
+            sp.set(walk="shared")
+            fn, _ = SL.make_blob_verifier(vcfg, inp, device=dev)
+            verdicts, shape_ok = fn(slot.stage(slot.pack, n, dev,
+                                               copy_stream))
+            slot.release(dev)
+            return ("dev", cid, idxs, lo, blobs, prepared, verdicts, shape_ok)
 
     def collect(p):
         """The chunk's verdicts: this rank's part (rerouted rows done),
         gathered over the mesh."""
         kind, cid, p_idxs, lo = p[:4]
-        if kind == "done":
-            verdicts = p[4]
-        elif kind == "host":
-            ok, dv = p[4:]
-            verdicts = dv.cpu().numpy() & ok          # waits on the device
-        else:
-            p_blobs, lens, dv, so = p[4:]
-            verdicts = dv.cpu().numpy().copy()
-            shape_ok = so.cpu().numpy()
-            # reroute to the host parser: shape-lane failures; SHORT blobs
-            # in every mode; non-exact lengths under strict mode
-            fallback = ~shape_ok | (lens < lay.nbytes)
-            if vcfg.strict:
-                fallback |= lens != lay.nbytes
-            rows = np.flatnonzero(fallback)
-            if rows.size:
-                verdicts[rows] = host_verdicts([p_blobs[j] for j in rows])
-        if mesh is not None:
-            verdicts, = _gather(mesh, [torch.from_numpy(verdicts)], lo,
-                               len(p_idxs))
-            verdicts = verdicts.cpu().numpy()
-        if manifest is not None:
-            manifest[cid] = [bool(v) for v in verdicts]
-        return list(zip(p_idxs, (bool(v) for v in verdicts)))
+        with span("stream.collect", chunk=cid, proofs=len(p_idxs)):
+            if kind == "done":
+                verdicts = p[4]
+            elif kind == "host":
+                ok, dv = p[4:]
+                with span("stream.wait_verdicts"):
+                    verdicts = dv.cpu().numpy() & ok      # waits on the device
+            else:
+                p_blobs, lens, dv, so = p[4:]
+                with span("stream.wait_verdicts"):
+                    verdicts = dv.cpu().numpy().copy()
+                    shape_ok = so.cpu().numpy()
+                # reroute to the host parser: shape-lane failures; SHORT
+                # blobs in every mode; non-exact lengths under strict mode
+                fallback = ~shape_ok | (lens < lay.nbytes)
+                if vcfg.strict:
+                    fallback |= lens != lay.nbytes
+                rows = np.flatnonzero(fallback)
+                if rows.size:
+                    with span("stream.reroute", rerouted=int(rows.size)):
+                        verdicts[rows] = host_verdicts(
+                            [p_blobs[j] for j in rows])
+            if mesh is not None:
+                with span("stream.gather"):
+                    verdicts, = _gather(mesh, [torch.from_numpy(verdicts)],
+                                        lo, len(p_idxs))
+                    verdicts = verdicts.cpu().numpy()
+            if manifest is not None:
+                manifest[cid] = [bool(v) for v in verdicts]
+            return list(zip(p_idxs, (bool(v) for v in verdicts)))
 
     def chunks():
         buf, idxs, cid = [], [], 0
@@ -719,7 +739,7 @@ def verify_stream(proof_blobs, chunk: int | None = None,
                 yield from advance()
             lo, hi = (0, len(blobs)) if mesh is None else \
                 part_bounds(len(blobs), mesh)
-            fut = worker.submit(prepare, slot, blobs[lo:hi])
+            fut = worker.submit(prepare, cid, slot, blobs[lo:hi])
             if prep is not None:
                 yield from advance()             # overlaps the worker
             prep = (cid, idxs, lo, blobs[lo:hi], slot, fut)

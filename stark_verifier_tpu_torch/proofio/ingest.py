@@ -30,6 +30,7 @@ import torch
 
 from . import device as pdevice
 from . import wire
+from ..profiling import span
 
 
 class SlotShapeError(Exception):
@@ -264,16 +265,35 @@ def ingest_chunk(blobs: list, cfg, layout: BatchLayout | None = None,
     instead of rejecting -- no blob's verdict depends on which other blobs
     share its chunk.
     """
+    with span("parse", proofs=len(blobs)) as sp:
+        tree, ok, layout, seen = _ingest(blobs, cfg, layout, threads, pad_to,
+                                         pin)
+        if sp:
+            rcs, fam, filled, slow, how = seen
+            sp.set(scan_rejected=int((rcs != 0).sum()),
+                   family_rejected=int(((rcs == 0) & ~fam).sum()),
+                   native_filled=int(filled.sum()), slow=slow,
+                   ok=int(ok.sum()), layout=how)
+    return tree, ok, layout
+
+
+def _ingest(blobs: list, cfg, layout, threads: int, pad_to, pin: bool):
+    """ingest_chunk's work: (tree, ok, layout, what the parse span counts:
+    (scan return codes, family rows, natively filled rows, slow-path blobs,
+    what became of the layout: kept, built, rebuilt, expanded or none))."""
     from .. import native
     lib = native.get_lib()
 
     B = len(blobs)
     alloc = max(pad_to or B, B)
     ok = np.zeros(B, dtype=bool)
-    chunk = native.Blobs(blobs)
-    metas, rcs = native.scan_many(lib, chunk, threads)
-    fam = (rcs == 0) & _family_rows(metas, cfg)
+    filled = np.zeros(B, dtype=bool)
+    with span("parse.scan"):
+        chunk = native.Blobs(blobs)
+        metas, rcs = native.scan_many(lib, chunk, threads)
+        fam = (rcs == 0) & _family_rows(metas, cfg)
 
+    given = layout is not None
     if layout is not None and (layout.batch < alloc
                                or not layout.family_ok(cfg)):
         layout = None
@@ -283,12 +303,14 @@ def ingest_chunk(blobs: list, cfg, layout: BatchLayout | None = None,
         # prover's witness padding changed): no blob here native-fills it,
         # so rebuild rather than slow-path whole chunks forever
         layout = None
+    how = "kept" if layout is not None else "rebuilt" if given else "built"
     if layout is None:
         if not fam.any():
             # nothing in this chunk matches the family: every blob rejects
-            return None, ok, layout
-        layout = BatchLayout(metas[int(np.flatnonzero(fam)[0])], alloc,
-                             pin=pin)
+            return None, ok, layout, (rcs, fam, filled, 0, "none")
+        with span("parse.layout"):
+            layout = BatchLayout(metas[int(np.flatnonzero(fam)[0])], alloc,
+                                 pin=pin)
 
     native_rows = fam & layout.compatible_rows(metas)
     if cfg.strict:
@@ -296,8 +318,8 @@ def ingest_chunk(blobs: list, cfg, layout: BatchLayout | None = None,
         native_rows &= (metas[:, 2 + 6 * cfg.fri_levels + 6]
                         == chunk.lens.astype(np.int64))
     rows = np.flatnonzero(native_rows)
-    filled = np.zeros(B, dtype=bool)
-    filled[rows[layout.fill(lib, chunk, rows, threads) == 0]] = True
+    with span("parse.fill"):
+        filled[rows[layout.fill(lib, chunk, rows, threads) == 0]] = True
     # a scan/fill divergence never aborts the chunk: such a blob takes the
     # per-proof host parse with the structural outliers (ragged groups,
     # other witness padding), which decides its verdict
@@ -318,30 +340,37 @@ def ingest_chunk(blobs: list, cfg, layout: BatchLayout | None = None,
 
     slow = np.flatnonzero(fam & ~filled)
     if slow.size:
-        with ThreadPoolExecutor(max_workers=max(1, threads)) as ex:
+        with span("parse.slow"), \
+                ThreadPoolExecutor(max_workers=max(1, threads)) as ex:
             list(ex.map(slow_one, slow.tolist()))
-    ok |= layout.validate_filled(cfg, filled)
+    with span("parse.validate"):
+        ok |= layout.validate_filled(cfg, filled)
 
     if oversized:
         # a valid proof must not reject because the chunk head's witness
         # padding was shallower: rebuild the layout with max dims and
         # migrate everything already ingested (adversarial input only)
-        layout = _expand_layout(layout, [t for _, t in oversized],
-                                np.flatnonzero(ok))
+        how = "expanded"
+        with span("parse.layout"):
+            layout = _expand_layout(layout, [t for _, t in oversized],
+                                    np.flatnonzero(ok))
         for j, t in oversized:
             layout.copy_slot_from_tree(t, j)
             ok[j] = True
 
+    seen = (rcs, fam, filled, int(slow.size), how)
     if not ok.any():
-        return None, ok, layout
+        return None, ok, layout, seen
     # failed and pad slots get the first valid proof, so that the whole
     # batch verifies in one call; their verdicts are masked by `ok`
-    first = int(np.flatnonzero(ok)[0])
-    rest = np.concatenate([np.flatnonzero(~ok),
-                           np.arange(B, layout.batch)]).astype(np.int64)
-    if rest.size:
-        pdevice.tree_map(lambda a: a.__setitem__(rest, a[first]), layout.tree)
-    return layout.tensors, ok, layout
+    with span("parse.pad"):
+        first = int(np.flatnonzero(ok)[0])
+        rest = np.concatenate([np.flatnonzero(~ok),
+                               np.arange(B, layout.batch)]).astype(np.int64)
+        if rest.size:
+            pdevice.tree_map(lambda a: a.__setitem__(rest, a[first]),
+                             layout.tree)
+    return layout.tensors, ok, layout, seen
 
 
 def _expand_layout(old: BatchLayout, extra_trees: list,

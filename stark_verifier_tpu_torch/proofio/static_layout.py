@@ -232,10 +232,11 @@ def make_blob_verifier(cfg: StarkConfig | None = None, inp: int = 3,
 @functools.lru_cache(maxsize=8)
 def _make_blob_verifier_cached(cfg: StarkConfig, inp: int, device: str):
     from ..protocol import verify as V
-    lay = canonical_layout(cfg)
-    # one chunk a call: the chunked verifier at chunk = the call's batch
-    inner, _tables = V.make_verifier(cfg, inp, shared_merkle=True,
-                                     device=device)
+    with V._build_span(cfg, True):
+        lay = canonical_layout(cfg)
+        # one chunk a call: the chunked verifier at chunk = the call's batch
+        inner, _tables = V.make_verifier(cfg, inp, shared_merkle=True,
+                                         device=device)
 
     def fn(words):
         tree, shape_ok = lay.parse(words)

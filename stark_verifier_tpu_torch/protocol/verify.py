@@ -48,6 +48,7 @@ from .. import debug, fp
 from ..config import StarkConfig, StatementTables, cached_tables
 from ..ops import blake2s, field as F, fri_cuda, merkle, mimc as mimc_ops
 from ..ops import ntt, prg, spot_cuda
+from ..profiling import span
 from ..proofio.device import resolve_device, to_tensor, tree_map
 
 
@@ -299,6 +300,18 @@ def verify_mimc_proof(tree, inp, output_limbs, tables, cfg: StarkConfig,
             raise ValueError("part needs the independent walk "
                              "(shared_merkle=False)")
         _check_part(tree, cfg, part)
+    runtime = constants_limbs is not None
+    with span("verify") as sp:
+        if sp:
+            sp.set(proofs=tree["merkle_root"][..., 0].numel(),
+                   shared_merkle=shared_merkle, runtime=runtime)
+        return _verify_mimc(tree, inp, output_limbs, tables, cfg,
+                            constants_limbs, shared_merkle, part)
+
+
+def _verify_mimc(tree, inp, output_limbs, tables, cfg: StarkConfig,
+                 constants_limbs, shared_merkle: bool, part):
+    """verify_mimc_proof's checks, a span for each phase."""
     m = cfg.modulus
     dev = tree["merkle_root"].device
     checks = []
@@ -310,51 +323,58 @@ def verify_mimc_proof(tree, inp, output_limbs, tables, cfg: StarkConfig,
     # per lane (the links never mix lanes)
     nf = -(-cfg.fri_queries // 8)
     ns = -(-cfg.spot_checks // 8)
-    seeds = torch.cat(
-        [tree["fri"]["root2"], tree["l_merkle_root"][..., None, :]],
-        dim=-2)                                            # [..., L+1, 8]
-    entries = prg.chain_entries(seeds, max(nf, ns))        # [..., L+1, n, 8]
-    moduli = _table(tables, "level_moduli", dev)           # [L] = rou_deg/4
-    ys = prg.indices_from_entries(
-        entries[..., :-1, :nf, :], cfg.fri_queries, moduli[:, None],
-        cfg.extension_factor)                              # [..., L, q]
+    with span("verify.prg"):
+        seeds = torch.cat(
+            [tree["fri"]["root2"], tree["l_merkle_root"][..., None, :]],
+            dim=-2)                                        # [..., L+1, 8]
+        entries = prg.chain_entries(seeds, max(nf, ns))    # [..., L+1, n, 8]
+        moduli = _table(tables, "level_moduli", dev)       # [L] = rou_deg/4
+        ys = prg.indices_from_entries(
+            entries[..., :-1, :nf, :], cfg.fri_queries, moduli[:, None],
+            cfg.extension_factor)                          # [..., L, q]
 
     # FRI low-degree proof over the linear-combination tree (main.rs:127)
-    checks.append(verify_low_degree_proof(
-        tree["l_merkle_root"], tree["fri"], tables, cfg, tree.get("points"),
-        shared_merkle, ys=_share(ys, part)))
+    with span("verify.fri"):
+        checks.append(verify_low_degree_proof(
+            tree["l_merkle_root"], tree["fri"], tables, cfg,
+            tree.get("points"), shared_merkle, ys=_share(ys, part)))
 
     # k1..k4 = Blake2s(merkle_root || i), raw 256-bit BE ints
     # (main.rs:131-146) -- the four 33-byte hashes batch into ONE call; the
     # ninth message word holds the single byte i
     mroot = tree["merkle_root"]
-    kbytes = torch.arange(1, 5, dtype=torch.int32, device=dev)     # [4]
-    kin = torch.cat(
-        [mroot[..., None, :].expand(mroot.shape[:-1] + (4, 8)),
-         kbytes[:, None].expand(mroot.shape[:-1] + (4, 1))],
-        dim=-1)                                            # [..., 4, 9]
-    kh = blake2s.hash_words(kin, 33)                       # [..., 4, 8] raw
+    with span("verify.khash"):
+        kbytes = torch.arange(1, 5, dtype=torch.int32, device=dev)  # [4]
+        kin = torch.cat(
+            [mroot[..., None, :].expand(mroot.shape[:-1] + (4, 8)),
+             kbytes[:, None].expand(mroot.shape[:-1] + (4, 1))],
+            dim=-1)                                        # [..., 4, 9]
+        kh = blake2s.hash_words(kin, 33)                   # [..., 4, 8] raw
 
     # spot-check positions from l_merkle_root (main.rs:148-156)
-    positions = prg.indices_from_entries(
-        entries[..., -1, :ns, :], cfg.spot_checks, cfg.precision,
-        cfg.extension_factor)                              # [..., 80] int64
-    debug.check_bounds(positions, cfg.precision, "spot-check positions")
-    aug = torch.stack(
-        [positions, (positions + cfg.skips) % cfg.precision], dim=-1)
-    augmented = aug.reshape(*aug.shape[:-2], cfg.spot_checks * 2)  # interleaved
-    # a rank's share: positions [k0, k1) are main branches [2 k0, 2 k1)
-    positions, augmented = _share(positions, part), _share(augmented, part)
+    with span("verify.prg"):
+        positions = prg.indices_from_entries(
+            entries[..., -1, :ns, :], cfg.spot_checks, cfg.precision,
+            cfg.extension_factor)                          # [..., 80] int64
+        debug.check_bounds(positions, cfg.precision, "spot-check positions")
+        aug = torch.stack(
+            [positions, (positions + cfg.skips) % cfg.precision], dim=-1)
+        augmented = aug.reshape(*aug.shape[:-2],
+                                cfg.spot_checks * 2)       # interleaved
+        # a rank's share: positions [k0, k1) are main branches [2 k0, 2 k1)
+        positions, augmented = _share(positions, part), _share(augmented,
+                                                               part)
 
-    if shared_merkle:
-        checks.extend(merkle.verify_groups_shared([
-            _as_shared_group(mroot, augmented, tree["main"]),
-            _as_shared_group(tree["l_merkle_root"], positions,
-                             tree["lincomb"])]))
-    else:
-        checks.extend(_verify_groups([
-            (mroot, augmented, tree["main"]),
-            (tree["l_merkle_root"], positions, tree["lincomb"])]))
+    with span("verify.merkle"):
+        if shared_merkle:
+            checks.extend(merkle.verify_groups_shared([
+                _as_shared_group(mroot, augmented, tree["main"]),
+                _as_shared_group(tree["l_merkle_root"], positions,
+                                 tree["lincomb"])]))
+        else:
+            checks.extend(_verify_groups([
+                (mroot, augmented, tree["main"]),
+                (tree["l_merkle_root"], positions, tree["lincomb"])]))
 
     # K(x) = minipoly(x^skips2) takes only k_period distinct values: the spot
     # kernel looks it up by pos mod period (main.rs:177-178) in the packed K
@@ -366,31 +386,36 @@ def verify_mimc_proof(tree, inp, output_limbs, tables, cfg: StarkConfig,
             raise ValueError(
                 f"constants_limbs: shape {tuple(constants_limbs.shape)}, "
                 f"family expects {(cfg.num_constants, fp.NLIMBS)}")
-        minipoly = ntt.intt(constants_limbs, tables.minipoly_root)  # [k, 16]
-        g2t = _table(tables, "g2_powers", dev)
-        x_sk2 = g2t[(positions * cfg.skips2) & (cfg.precision - 1)]
-        k_rows = F.limbs_to_words_le(F.eval_poly(minipoly, x_sk2))
+        with span("verify.kx"):
+            minipoly = ntt.intt(constants_limbs,
+                                tables.minipoly_root)      # [k, 16]
+            g2t = _table(tables, "g2_powers", dev)
+            x_sk2 = g2t[(positions * cfg.skips2) & (cfg.precision - 1)]
+            k_rows = F.limbs_to_words_le(F.eval_poly(minipoly, x_sk2))
 
     # boundary interpolant I(x) coefficients (main.rs:183-187): I(x)
     # interpolates (1, inp), (last, output); host-constant scaffolding, device
     # part only where the output enters (utils.rs:246-274)
-    last = tables.last_step_position
-    e0 = (1 - last) % m
-    e1 = (last - 1) % m
-    inv_e = pow(e0 * e1 % m, m - 2, m)
-    iy1 = F.mul_mod(output_limbs, F.const(inv_e * e0 % m, dev))    # [..., 16]
-    neg_iy1 = F.mul_mod(F.const(m - 1, dev), iy1)
-    if isinstance(inp, int):
-        # statement-static input: iy0 and its -last*iy0 term fold to host
-        iy0 = inp % m * inv_e % m * e1 % m                 # host scalar
-        i_c0 = F.add_mod(F.const((-last * iy0) % m, dev), neg_iy1)
-        i_c1 = F.add_mod(F.const(iy0, dev), iy1)
-    else:
-        # runtime input (the reference's library boundary, lib.rs:99): the
-        # same algebra on the device
-        iy0 = F.mul_mod(inp, F.const(inv_e * e1 % m, dev))  # [..., 16]
-        i_c0 = F.add_mod(F.mul_mod(iy0, F.const((-last) % m, dev)), neg_iy1)
-        i_c1 = F.add_mod(iy0, iy1)
+    with span("verify.boundary"):
+        last = tables.last_step_position
+        e0 = (1 - last) % m
+        e1 = (last - 1) % m
+        inv_e = pow(e0 * e1 % m, m - 2, m)
+        iy1 = F.mul_mod(output_limbs,
+                        F.const(inv_e * e0 % m, dev))      # [..., 16]
+        neg_iy1 = F.mul_mod(F.const(m - 1, dev), iy1)
+        if isinstance(inp, int):
+            # statement-static input: iy0 and its -last*iy0 term fold to host
+            iy0 = inp % m * inv_e % m * e1 % m             # host scalar
+            i_c0 = F.add_mod(F.const((-last * iy0) % m, dev), neg_iy1)
+            i_c1 = F.add_mod(F.const(iy0, dev), iy1)
+        else:
+            # runtime input (the reference's library boundary, lib.rs:99):
+            # the same algebra on the device
+            iy0 = F.mul_mod(inp, F.const(inv_e * e1 % m, dev))  # [..., 16]
+            i_c0 = F.add_mod(F.mul_mod(iy0, F.const((-last) % m, dev)),
+                             neg_iy1)
+            i_c1 = F.add_mod(iy0, iy1)
 
     # the three constraint families (main.rs:179-192) in one kernel, each
     # right-hand side one multi-term accumulation compared against the
@@ -400,15 +425,16 @@ def verify_mimc_proof(tree, inp, output_limbs, tables, cfg: StarkConfig,
     # gathers x = G2^pos, x^steps, Z(x) = (x^steps - 1) / (x - last) and
     # Z2(x) = (x - 1)(x - last) (main.rs:164-166, 175-176, 185) from
     # host-precomputed tables: no inversion and no square-and-multiply
-    oks = spot_cuda.spot_checks(
-        tree["main"]["value"], tree["lincomb"]["value"], positions, kh, i_c1,
-        i_c0, _spot_tables(tables, cfg, dev), k_rows,
-        power=cfg.power)                                   # [..., 80, 3]
-    checks.append(oks.flatten(-2).all(dim=-1))
+    with span("verify.spot"):
+        oks = spot_cuda.spot_checks(
+            tree["main"]["value"], tree["lincomb"]["value"], positions, kh,
+            i_c1, i_c0, _spot_tables(tables, cfg, dev), k_rows,
+            power=cfg.power)                               # [..., 80, 3]
+        checks.append(oks.flatten(-2).all(dim=-1))
 
-    ok = checks[0]
-    for c in checks[1:]:
-        ok = ok & c
+        ok = checks[0]
+        for c in checks[1:]:
+            ok = ok & c
     return ok
 
 
@@ -549,8 +575,15 @@ def make_verifier(cfg: StarkConfig | None = None, inp: int = 3,
 @functools.lru_cache(maxsize=16)
 def _make_verifier_cached(cfg: StarkConfig, inp: int, shared_merkle: bool,
                           device: str):
-    tables = cached_tables(cfg)
-    return MimcVerifier(cfg, inp, tables, shared_merkle).to(device), tables
+    with _build_span(cfg, shared_merkle):
+        tables = cached_tables(cfg)
+        return MimcVerifier(cfg, inp, tables, shared_merkle).to(device), tables
+
+
+def _build_span(cfg: StarkConfig, shared_merkle: bool):
+    """The span of a verifier built on a cache miss, named by its family."""
+    return span("verify.build", log_steps=cfg.log_steps,
+                shared_merkle=shared_merkle)
 
 
 def make_chunked_verifier(cfg: StarkConfig | None = None, inp: int = 3,
@@ -570,9 +603,10 @@ def make_chunked_verifier(cfg: StarkConfig | None = None, inp: int = 3,
 @functools.lru_cache(maxsize=16)
 def _make_chunked_cached(cfg: StarkConfig, inp: int, chunk: int,
                          shared_merkle: bool, device: str):
-    tables = cached_tables(cfg)
-    return (MimcVerifier(cfg, inp, tables, shared_merkle, chunk).to(device),
-            tables)
+    with _build_span(cfg, shared_merkle):
+        tables = cached_tables(cfg)
+        return (MimcVerifier(cfg, inp, tables, shared_merkle,
+                             chunk).to(device), tables)
 
 
 def make_general_verifier(cfg: StarkConfig | None = None,
@@ -592,6 +626,7 @@ def make_general_verifier(cfg: StarkConfig | None = None,
 
 @functools.lru_cache(maxsize=16)
 def _make_general_cached(cfg: StarkConfig, shared_merkle: bool, device: str):
-    tables = cached_tables(cfg)
-    return (GeneralMimcVerifier(cfg, tables, shared_merkle).to(device),
-            tables)
+    with _build_span(cfg, shared_merkle):
+        tables = cached_tables(cfg)
+        return (GeneralMimcVerifier(cfg, tables, shared_merkle).to(device),
+                tables)
