@@ -12,7 +12,7 @@ It needs a CUDA device, `nvcc`, and nothing else: no network, no JAX.  Phases
 the CPU):
 
   1. device   -- the card's name and power limit;
-  2. build    -- nvcc builds the nine kernels from stark_verifier_tpu_torch/csrc;
+  2. build    -- nvcc builds the kernels from stark_verifier_tpu_torch/csrc;
                  the instruction counts of the bounds are read from this
                  build's SASS (stark_verifier_tpu_torch/sass.py: cuobjdump
                  of the library and of csrc/probes/work.cu);
@@ -27,7 +27,9 @@ the CPU):
                  sharded NTT launches it; the several-stage NTT kernel
                  through ops/ntt.ntt at 2^6, 2^13, 2^16 and 2^20, forward
                  and inverse; the MiMC scan at 512 steps on 1,024 inputs,
-                 powers 3 and 2, and on 1 input), with the wrapper's
+                 powers 3 and 2, and on 1 input; the narrow hashes on a
+                 chunk's chains, [512, 6] seeds x 9 links, and its k-hashes,
+                 [512, 4, 9] words of 33 bytes), with the wrapper's
                  time (CUDA events around Python calls) and its device time
                  (calls replayed from a CUDA graph) beside the least time the
                  card could take; C's device time also at fewer proofs;
@@ -37,8 +39,13 @@ the CPU):
                  chunks of 512 through make_chunked_verifier on the card;
                  verdicts must be exactly right, equal the CPU path's on the
                  first 16, and the shared-path kernels must have been
-                 launched (kernel A twice a chunk); then verify_proof_bytes
-                 on good / trailing / truncated / flipped blobs;
+                 launched (kernel A twice a chunk; the narrow hashes 8
+                 times a chunk: its chains, its k-hashes, 3 + 3 dense tail
+                 levels); the narrow hashes of one 512-proof verify,
+                 recorded as it made them, against their plain version and
+                 timed; then verify_proof_bytes on good / trailing /
+                 truncated / flipped blobs (the good one launching the
+                 narrow hashes 8 times);
   6. unshared path -- the same batch with shared_merkle=False: every branch
                  walks to the root on its own in the independent-walk kernel
                  (twice a chunk); verdicts equal the main path's.  Then a ragged batch (witness
@@ -157,8 +164,8 @@ from stark_verifier_tpu_torch.config import StarkConfig, cached_tables  # noqa: 
 from stark_verifier_tpu_torch.models.mimc import MimcStatement  # noqa: E402
 from stark_verifier_tpu_torch.models.square import SquareStatement  # noqa: E402
 from stark_verifier_tpu_torch.ops import (  # noqa: E402
-    blake2s, field as F, field_cuda, fri_cuda, merkle as merkle_ops,
-    merkle_cuda, mimc, ntt, prg, quartic, spot_cuda)
+    blake2s, blake2s_cuda, field as F, field_cuda, fri_cuda,
+    merkle as merkle_ops, merkle_cuda, mimc, ntt, prg, quartic, spot_cuda)
 from stark_verifier_tpu_torch.parallel import mesh as M  # noqa: E402
 from stark_verifier_tpu_torch.parallel import rank_checks as R  # noqa: E402
 from stark_verifier_tpu_torch.proofio import (  # noqa: E402
@@ -200,11 +207,12 @@ ALU_PER_S = 67e12 / 4
 
 # Where the instructions a unit of work needs, (all, ALU-only), are read
 # from this build's SASS (stark_verifier_tpu_torch/sass.py):
-#   a Blake2s compression of kernels A, B and F: the level loop of the
-#     kernel (part of its mangled name here), its LOP3, PRMT and SHF (the
-#     xors, rotates and feed-forward, ALU pipe only) and its adds; the row's
-#     loads, the message selects and the loop's control are left out, so
-#     that a leaf's compressions (and B's combine) count the same;
+#   a Blake2s compression of kernels A, B and F and of the narrow hashes:
+#     the level loop of the kernel (the block loop, the link loop; part of
+#     its mangled name here), its LOP3, PRMT and SHF (the xors, rotates and
+#     feed-forward, ALU pipe only) and its adds; the row's loads, the
+#     message selects and the loop's control are left out, so that a leaf's
+#     compressions (and B's combine) count the same;
 #   kernels C, D and E: the probes of csrc/probes/work.cu, the products,
 #     reductions, adds and compares of a unit of the function, with no
 #     loads, stores, moves or limb packing; C's special_x is canonicalized
@@ -212,7 +220,9 @@ ALU_PER_S = 67e12 / 4
 #     redoes it in every thread.
 SASS_COMPRESS = {"walk_leaf_levels": "stark_walk_groups_kernelILi0",
                  "walk_branches": "stark_walk_groups_kernelILi1",
-                 "walk_quads": "stark_walk_groups_kernelILi2"}
+                 "walk_quads": "stark_walk_groups_kernelILi2",
+                 "hash_words": "stark_hash_kernelILb0E",
+                 "hash_chain": "stark_hash_kernelILb1E"}
 SASS_PROBES = ("probe_eval4_row", "probe_eval4_special_x", "probe_spot3",
                "probe_spot2", "probe_mul", "probe_butterfly", "probe_mimc3",
                "probe_mimc2")
@@ -779,6 +789,70 @@ def check_mimc(gen, ops, n, steps, power=3, reps=3):
                    [(n * (steps - 1), ops[f"probe_mimc{power}"])], reps)
 
 
+def check_hash_words(ops, words, length, label, reps):
+    """The narrow-hash kernel on the messages `words` [..., W] of `length`
+    bytes against the plain version, word for word."""
+    got = blake2s_cuda.hash_words(words, length)
+    torch.cuda.synchronize()
+    want = blake2s.hash_words_plain(words, length)
+    n = got.numel() // 8
+    return measure(label, lambda: blake2s_cuda.hash_words(words, length),
+                   lambda: blake2s.hash_words_plain(words, length), [got],
+                   [want], nbytes(words, got),
+                   [(n * max(1, -(-length // 64)), ops["hash_words"])], reps)
+
+
+def check_hash_chain(gen, ops, lead, links, reps):
+    """The chain mode on random seeds [*lead, 8] against the plain chain
+    (prg.chain_entries_plain), word for word."""
+    seeds = rand_words(gen, lead + (8,))
+    got = blake2s_cuda.chain_entries(seeds, links)
+    torch.cuda.synchronize()
+    want = prg.chain_entries_plain(seeds, links + 1)
+    n = seeds.numel() // 8
+    return measure(f"{list(lead) + [8]} seeds x {links} links",
+                   lambda: blake2s_cuda.chain_entries(seeds, links),
+                   lambda: prg.chain_entries_plain(seeds, links + 1), [got],
+                   [want], nbytes(seeds, got),
+                   [(n * links, ops["hash_chain"])], reps)
+
+
+def check_hash_recorded(ops, fn, tree, kernels):
+    """The narrow hashes of one verify call of CHUNK proofs, recorded as
+    the call made them (the k-hash, the dense tail levels of both shared
+    walks), each against the plain version and timed: cases of the
+    hash_words record."""
+    calls, real = [], blake2s_cuda.hash_words
+
+    def recording(words, nbytes):
+        calls.append((words.clone(), nbytes))
+        return real(words, nbytes)
+
+    blake2s_cuda.hash_words = recording
+    try:
+        fn(dev_io.tree_map(lambda x: x[:CHUNK], tree))
+        torch.cuda.synchronize()
+    finally:
+        blake2s_cuda.hash_words = real
+    rec, = (k for k in kernels if k["name"] == "hash_words")
+    tails = 0
+    for words, nb in calls:
+        what = "k-hash" if nb == 33 else f"tail level {tails}"
+        tails += nb != 33
+        c = check_hash_words(ops, words, nb, f"recorded {what}: "
+                             f"{list(words.shape)} words, {nb} bytes", 20)
+        log(f"kernel hash_words [{c['shape']}]: max_abs_err "
+            f"{c['max_abs_err']}, wrapper {c['ms']:.4f} ms, device "
+            f"{c['device_ms']:.4f} ms, plain {c['plain_ms']:.2f} ms, bound "
+            f"{c['bound_ms']:.5f} ms ({c['bound_by']}; ALU pipe "
+            f"{c['alu_ms']:.5f})")
+        if c["max_abs_err"]:
+            fail(f"hash_words disagrees with its plain version on the "
+                 f"recorded {what}")
+        rec["cases"].append(c)
+    return len(calls)
+
+
 def branch_inputs(gen, b, n, vw, depth, max_depth=None, mixed=False):
     """One group of the unshared path: b x n branches of `depth` witness
     levels each (mixed: 1..max_depth by lane), witness arrays max_depth deep
@@ -1006,6 +1080,18 @@ def kernel_phase(cfg, tables, ops):
     mimc_cases = [check_mimc(gen, ops, 1024, 512, 3),
                   check_mimc(gen, ops, 1024, 512, 2),
                   check_mimc(gen, ops, 1, 512, 3)]
+    # the narrow hashes at the main path's shapes: a chunk's chains (its
+    # five FRI seeds and the lincomb root, one link fewer than the longer
+    # index stream's entries) and its four k-hashes of 33 bytes; the dense
+    # tails' inputs are recorded from a verify call in phase 5
+    links = max(-(-q // 8), -(-sp // 8)) - 1
+    chain_cases = [check_hash_chain(gen, ops, (b, nl + 1), links, 20)]
+    kin = torch.cat([rand_words(gen, (b, 1, 8)).expand(b, 4, 8),
+                     torch.arange(1, 5, dtype=torch.int32, device=DEV)
+                     [None, :, None].expand(b, 4, 1)], dim=-1)
+    hash_cases = [check_hash_words(ops, kin, 33,
+                                   f"k-hashes {list(kin.shape)}, 33 bytes",
+                                   20)]
     per_proof = sum(c["compressions"] for c in f_cases[:2]) // b
     log(f"unshared walk: {per_proof} compressions a proof over "
         f"{len(f_main + f_fri)} groups in two launches")
@@ -1046,6 +1132,12 @@ def kernel_phase(cfg, tables, ops):
                block_cases),
         record("mimc_scan", src + "mimc_scan.cu", tpu + "mimc.py:41",
                mimc_cases),
+        # nor behind these two: XLA compiled the JAX package's narrow
+        # hashes and its chain loop
+        record("hash_words", src + "blake2s_hash.cu", tpu + "blake2s.py:193",
+               hash_cases),
+        record("hash_chain", src + "blake2s_hash.cu", tpu + "prg.py:28",
+               chain_cases),
     ]
 
 
@@ -1210,7 +1302,7 @@ def ragged_blob(blob):
             + blob[at + 4:-32])
 
 
-def main_path(cfg, blob, tree_np, kernels):
+def main_path(cfg, blob, tree_np, kernels, ops):
     """Phase 5.  Returns (verifier, batch on the card, exact verdicts)."""
     fn, _ = V.make_chunked_verifier(cfg, 3, chunk=CHUNK, device=DEV)
     tree = device_batch(tree_np, BATCH, tamper=True)
@@ -1226,11 +1318,20 @@ def main_path(cfg, blob, tree_np, kernels):
     if counts["walk_quads"] != BATCH // CHUNK:
         fail(f"the main path launched kernel B {counts['walk_quads']} times, "
              f"expected 1 a chunk (the five FRI poly quad groups)")
+    chunks = BATCH // CHUNK
+    hashes = (counts["hash_chain"], counts["hash_words"])
+    if hashes != (chunks, 7 * chunks):
+        fail(f"the main path launched the chain and the narrow hashes "
+             f"{hashes} times, expected {(chunks, 7 * chunks)}: a chunk's "
+             f"chains, its k-hashes and the 3 + 3 tail levels")
     for k in kernels:
-        if k["name"] in shared:
+        if k["name"] in shared + ("hash_chain", "hash_words"):
             k["launches"], k["launches_on"] = counts[k["name"]], "main path"
     log(f"main path: batch {BATCH} in chunks of {CHUNK}: verdicts exact "
         f"(12 tampered reject, {BATCH - 12} accept); launches {counts}")
+    recorded = check_hash_recorded(ops, fn, tree, kernels)
+    log(f"hash_words: the {recorded} calls of one {CHUNK}-proof verify "
+        f"(the k-hash and 3 + 3 tail levels) equal the plain version")
 
     cpu_fn, _ = V.make_verifier(cfg, 3, device="cpu")
     head = dev_io.tree_map(lambda x: x[:16].cpu(), tree)
@@ -1247,9 +1348,16 @@ def main_path(cfg, blob, tree_np, kernels):
               "truncated": (blob[:1000], False),
               "flipped@110": (bytes(flipped), False)}
     for name, (data, expect) in facade.items():
-        got = sv.verify_proof_bytes(data, log_steps=LOG_STEPS, device=DEV)
+        got, _ = counted(lambda: sv.verify_proof_bytes(
+            data, log_steps=LOG_STEPS, device=DEV))
         if got is not expect:
             fail(f"verify_proof_bytes({name}) = {got}, expected {expect}")
+        if name == "blob":
+            log(f"verify_proof_bytes: one fixed-statement call launched the "
+                f"narrow hashes {dict(blake2s_cuda.launches)}")
+            if sum(blake2s_cuda.launches.values()) != 8:
+                fail("one fixed-statement call must launch the narrow "
+                     "hashes 8 times (1 chain, 1 k-hash, 3 + 3 tail levels)")
     log(f"verify_proof_bytes: {', '.join(facade)} as expected")
     return fn, tree, want
 
@@ -1711,9 +1819,11 @@ STREAM_BLOBS = 4096    # distinct blobs through verify_stream, chunks of CHUNK
 # unshared path above: A twice, B once, C once, D once, E twice a chunk)
 WALK_LAUNCHES = {
     "shared": {"walk_leaf_levels": 2, "walk_quads": 1, "walk_branches": 0,
-               "fri_rows": 1, "spot_checks": 1, "mul_mod": 2},
+               "fri_rows": 1, "spot_checks": 1, "mul_mod": 2,
+               "hash_words": 7, "hash_chain": 1},
     "unshared": {"walk_leaf_levels": 0, "walk_quads": 0, "walk_branches": 2,
-                 "fri_rows": 1, "spot_checks": 1, "mul_mod": 2},
+                 "fri_rows": 1, "spot_checks": 1, "mul_mod": 2,
+                 "hash_words": 1, "hash_chain": 1},
 }
 
 
@@ -2578,7 +2688,7 @@ def main():
         f"({time.perf_counter() - t0:.1f} s)")
     tree_np = dev_io.proof_tree(wire.parse_and_validate(blob, cfg))
 
-    fn, tree, want = main_path(cfg, blob, tree_np, kernels)
+    fn, tree, want = main_path(cfg, blob, tree_np, kernels, ops)
     row_forms_phase(cfg, tables, tree)
     fn_u = unshared_path(cfg, blob, tree_np, tree, want, kernels, consts, out)
     general = runtime_statement_path(cfg, blob, tree, want, kernels, consts,

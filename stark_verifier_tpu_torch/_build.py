@@ -82,6 +82,13 @@ class NttBlockArgs(ctypes.Structure):
                 ("src_limbs", _i), ("dst_limbs", _i)]
 
 
+class HashArgs(ctypes.Structure):
+    """The operands of one launch of the narrow hashes (csrc/blake2s_hash.cu,
+    struct stark_hash_args: the same fields in the same order)."""
+    _fields_ = [("src", _p), ("dst", _p), ("n", _ll), ("words", _i),
+                ("nbytes", _i), ("chain", _i), ("links", _i)]
+
+
 _groups = ctypes.POINTER(WalkGroup)
 # C entry points: every pointer and the stream are c_void_p (a bare Python
 # int would be passed as a 32-bit int and cut the pointer)
@@ -95,6 +102,7 @@ SIGNATURES = {
     "stark_ntt_stage": [ctypes.POINTER(NttStageArgs), _p],
     "stark_ntt_block": [ctypes.POINTER(NttBlockArgs), _p],
     "stark_mimc_scan": [_p, _p, _ll, _ll, _i, _p, _ll, _p],
+    "stark_hash_words": [ctypes.POINTER(HashArgs), _p],
 }
 
 _state = {"lib": None, "seconds": None, "log": ""}

@@ -17,16 +17,21 @@ a [..., 4, 4] matrix as four [..., 4] rows; the column and diagonal half-rounds
 are G-functions applied to whole rows (the classic 4-lane formulation), which
 keeps a compression at a few hundred tensor ops.
 
-On the card this module hashes only the narrow parts of the verifier (index
-chains, k-hashes, quad combines, dense Merkle tails); the wide Merkle levels
-run in the CUDA kernels of ops/merkle_cuda.py, which carry their own
-compression (csrc/blake2s.cuh).
+hash_words dispatches by device and nothing else: a CUDA tensor takes one
+launch of the narrow-hash kernel (ops/blake2s_cuda.py, csrc/blake2s_hash.cu),
+a CPU tensor the plain version here (hash_words_plain), which the plain walks
+of ops/merkle_cuda.py call directly.  On the card that kernel hashes the
+narrow parts of the verifier (k-hashes, dense Merkle tails; the index chains
+through ops/prg.chain_entries); the wide Merkle levels run in the kernels of
+ops/merkle_cuda.py, which carry the same compression (csrc/blake2s.cuh).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from . import blake2s_cuda
 
 IV = np.array([
     0x6A09E667, 0xBB67AE85, 0x3C6EF372, 0xA54FF53A,
@@ -118,8 +123,16 @@ def hash_words(words: torch.Tensor, nbytes: int) -> torch.Tensor:
     """Blake2s-256 digest of a message given as [..., W] int32 LE words.
 
     nbytes is the true (static) message length; words beyond it must be
-    zero-padded by the caller (W >= ceil(nbytes/4)).  Returns [..., 8].
-    """
+    zero-padded by the caller (W >= ceil(nbytes/4)).  Returns [..., 8]:
+    the kernel for a CUDA tensor, the plain version for a CPU tensor."""
+    if words.device.type == "cpu":
+        return hash_words_plain(words, nbytes)
+    return blake2s_cuda.hash_words(words, nbytes)
+
+
+def hash_words_plain(words: torch.Tensor, nbytes: int) -> torch.Tensor:
+    """Plain version of hash_words: one compression of tensor ops a block,
+    on whatever device the tensor lies."""
     W = words.shape[-1]
     if W * 4 < nbytes:
         raise ValueError(f"hash_words: {W} words cannot hold {nbytes} bytes")

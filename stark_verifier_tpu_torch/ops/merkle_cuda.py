@@ -72,12 +72,19 @@ def _witness_stride(wit: torch.Tensor, nlead: int, levels: int) -> int:
     return _lead_stride(wit, nlead, "witness")
 
 
+def _pair_plain(left, right):
+    """H(left || right) of two equal-width word inputs by the plain hash,
+    on whatever device they lie (the plain walks never launch a kernel)."""
+    return blake2s.hash_words_plain(torch.cat([left, right], dim=-1),
+                                    8 * left.shape[-1])
+
+
 def _chain_plain(res, witness_words, ti, levels):
     for k in range(levels):
         w = witness_words[..., k, :]
         odd = ((ti & 1) != 0)[..., None]
-        res = blake2s.hash_pair(torch.where(odd, w, res),
-                                torch.where(odd, res, w))
+        res = _pair_plain(torch.where(odd, w, res),
+                          torch.where(odd, res, w))
         ti = ti >> 1
     return res
 
@@ -85,10 +92,10 @@ def _chain_plain(res, witness_words, ti, levels):
 def walk_leaf_levels_plain(value_words, sibling_words, witness_words,
                            tree_index, levels: int):
     """Plain version of walk_leaf_levels: the leaf pair-hash, then a loop of
-    blake2s.hash_pair ordered by index parity."""
+    pair hashes ordered by index parity."""
     odd = ((tree_index & 1) != 0)[..., None]
-    res = blake2s.hash_leaf_pair(torch.where(odd, sibling_words, value_words),
-                                 torch.where(odd, value_words, sibling_words))
+    res = _pair_plain(torch.where(odd, sibling_words, value_words),
+                      torch.where(odd, value_words, sibling_words))
     # tree indices are < 2^31, so the int32 shift is the unsigned one
     return _chain_plain(res, witness_words, tree_index >> 1, levels)
 
@@ -109,12 +116,12 @@ def walk_quads_plain(value_words, sibling_words, witness_words, tree_index,
     sib4 = sibling_words.reshape(lead4 + sibling_words.shape[-1:])
     wit4 = witness_words.reshape(lead4 + witness_words.shape[-2:])
     # branches 0 and 2 of every quad in one call: their tree indices are even
-    n0123 = blake2s.hash_leaf_pair(val4[..., 0::2, :], sib4[..., 0::2, :])
+    n0123 = _pair_plain(val4[..., 0::2, :], sib4[..., 0::2, :])
     n01, n23 = n0123[..., 0, :], n0123[..., 1, :]
     w0 = wit4[..., 0, :]                        # [..., q, 4, 8]
     ok = ((w0[..., 0:2, :] == n23[..., None, :]).all(dim=-1).all(dim=-1)
           & (w0[..., 2:4, :] == n01[..., None, :]).all(dim=-1).all(dim=-1))
-    res = blake2s.hash_pair(n01, n23)
+    res = _pair_plain(n01, n23)
     ti = tree_index.reshape(lead4)[..., 0] >> 2
     return (_chain_plain(res, wit4[..., 0, 1:, :], ti, levels),
             ok.to(torch.int32))
@@ -269,14 +276,14 @@ def walk_branches_plain(value_words, sibling_words, witness_words, tree_index,
     ti = tree_index.to(torch.int64) & 0xFFFFFFFF
     d = depth.to(torch.int64) & 0xFFFFFFFF
     odd = ((ti & 1) != 0)[..., None]
-    res = blake2s.hash_leaf_pair(torch.where(odd, sibling_words, value_words),
-                                 torch.where(odd, value_words, sibling_words))
+    res = _pair_plain(torch.where(odd, sibling_words, value_words),
+                      torch.where(odd, value_words, sibling_words))
     ti = ti >> 1
     for k in range(max_depth):
         w = witness_words[..., k, :]
         odd = ((ti & 1) != 0)[..., None]
-        nres = blake2s.hash_pair(torch.where(odd, w, res),
-                                 torch.where(odd, res, w))
+        nres = _pair_plain(torch.where(odd, w, res),
+                           torch.where(odd, res, w))
         active = k < d
         res = torch.where(active[..., None], nres, res)
         ti = torch.where(active, ti >> 1, ti)

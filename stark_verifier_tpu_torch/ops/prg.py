@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from . import blake2s
+from . import blake2s, blake2s_cuda
 from .field import bswap32
 
 
@@ -28,11 +28,21 @@ def chain_entries(seed_words: torch.Tensor, n_entries: int) -> torch.Tensor:
     n_entries-1 Blake2s chain links (the seed itself is the first stream
     entry, NOT hashed first -- utils.rs:67-70).  Chains with different seeds
     batch along the leading dims, so stacking every chain the protocol needs
-    steps them together."""
+    steps them together: on the card, one launch of the chain kernel
+    (ops/blake2s_cuda.py); on the CPU, the plain version."""
+    if seed_words.device.type == "cpu":
+        return chain_entries_plain(seed_words, n_entries)
+    return blake2s_cuda.chain_entries(seed_words, n_entries - 1)
+
+
+def chain_entries_plain(seed_words: torch.Tensor,
+                        n_entries: int) -> torch.Tensor:
+    """Plain version of chain_entries: one plain hash a link, on whatever
+    device the tensor lies."""
     entries = [seed_words]
     cur = seed_words
     for _ in range(n_entries - 1):
-        cur = blake2s.hash_chain(cur)
+        cur = blake2s.hash_words_plain(cur, 32)
         entries.append(cur)
     return torch.stack(entries, dim=-2)
 

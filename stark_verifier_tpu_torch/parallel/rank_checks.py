@@ -28,14 +28,16 @@ from ..config import StarkConfig
 import numpy as np
 
 from .. import _build, fp
-from ..ops import field_cuda, fri_cuda, merkle_cuda, mimc, ntt, spot_cuda
+from ..ops import (blake2s_cuda, field_cuda, fri_cuda, merkle_cuda, mimc, ntt,
+                   spot_cuda)
 from ..proofio import device as pdevice
 from ..proofio import wire
 from ..protocol import verify as V
 from . import mesh as M
 from . import ntt as pntt
 
-KERNEL_MODULES = (merkle_cuda, fri_cuda, spot_cuda, field_cuda, ntt, mimc)
+KERNEL_MODULES = (merkle_cuda, fri_cuda, spot_cuda, field_cuda, ntt, mimc,
+                  blake2s_cuda)
 
 
 def _sync(mesh: M.Mesh) -> None:

@@ -46,8 +46,8 @@ from torch import nn
 
 from .. import debug, fp
 from ..config import StarkConfig, StatementTables, cached_tables
-from ..ops import blake2s, field as F, fri_cuda, merkle, mimc as mimc_ops
-from ..ops import ntt, prg, spot_cuda
+from ..ops import blake2s, blake2s_cuda, field as F, fri_cuda, merkle
+from ..ops import mimc as mimc_ops, ntt, prg, spot_cuda
 from ..profiling import span
 from ..proofio.device import resolve_device, to_tensor, tree_map
 
@@ -305,8 +305,12 @@ def verify_mimc_proof(tree, inp, output_limbs, tables, cfg: StarkConfig,
         if sp:
             sp.set(proofs=tree["merkle_root"][..., 0].numel(),
                    shared_merkle=shared_merkle, runtime=runtime)
-        return _verify_mimc(tree, inp, output_limbs, tables, cfg,
-                            constants_limbs, shared_merkle, part)
+            hashed = sum(blake2s_cuda.launches.values())
+        ok = _verify_mimc(tree, inp, output_limbs, tables, cfg,
+                          constants_limbs, shared_merkle, part)
+        if sp:
+            sp.set(hash_launches=sum(blake2s_cuda.launches.values()) - hashed)
+        return ok
 
 
 def _verify_mimc(tree, inp, output_limbs, tables, cfg: StarkConfig,

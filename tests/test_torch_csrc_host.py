@@ -11,6 +11,7 @@ chip_smoke.py.  Tolerance 0: everything is integer arithmetic.
 """
 
 import ctypes
+import hashlib
 import shutil
 import subprocess
 
@@ -21,8 +22,8 @@ import torch
 from stark_verifier_tpu_torch import _build, fp
 from stark_verifier_tpu_torch.config import StarkConfig, cached_tables
 from stark_verifier_tpu_torch.ops import (
-    blake2s, field as F, field_cuda, fri_cuda, merkle_cuda, mimc, ntt,
-    spot_cuda)
+    blake2s, blake2s_cuda, field as F, field_cuda, fri_cuda, merkle_cuda,
+    mimc, ntt, prg, spot_cuda)
 
 torch.set_num_threads(1)
 P = fp.MODULUS
@@ -888,3 +889,134 @@ def test_host_mimc_scan_wide_constant_past_shared_memory(hostlib):
     out = _scan(hostlib, x, consts, 8001)
     assert fp.limbs_to_int(_np32(out)[0]) == mimc.mimc_host(5, 8001, ints)
     assert (_np32(_scan(hostlib, x, consts, 8002)) == 0xFFFFFFFF).all()
+
+
+# ---------------------------------------------------------------------------
+# the narrow hashes: hash_words and the chain mode
+# ---------------------------------------------------------------------------
+
+def _blake2s_words(words, nbytes):
+    """hashlib's digest of each message's first nbytes bytes, as LE words."""
+    w = np.ascontiguousarray(words.numpy()).view(np.uint32)
+    rows = w.reshape(-1, w.shape[-1])
+    out = [np.frombuffer(hashlib.blake2s(r.astype("<u4").tobytes()[:nbytes])
+                         .digest(), dtype="<u4") for r in rows]
+    return np.stack(out).reshape(w.shape[:-1] + (8,))
+
+
+@pytest.mark.parametrize("nbytes,W,lead,dirty", [
+    (32, 8, (), False), (33, 9, (5,), False), (64, 16, (3, 4), False),
+    (192, 48, (5,), False), (32, 8, (3, 4), False), (192, 48, (), False),
+    (33, 9, (3, 4), True), (32, 10, (5,), True)])
+def test_host_hash_words(hostlib, nbytes, W, lead, dirty):
+    """The entry point built by g++ against hashlib and the plain version,
+    word for word, at the protocol's lengths and three leading shapes; with
+    `dirty` the bits past nbytes are not zero (a 33-byte message's last
+    word, two words past a 32-byte one): it hashes them as the plain
+    version does."""
+    rng = np.random.RandomState(nbytes + W + len(lead))
+    words = _words(rng, lead + (W,))
+    flat = words.view(-1, W)
+    if not dirty:                       # zeros past nbytes, as callers pad
+        byte = np.arange(4 * W).reshape(W, 4)
+        mask = ((byte < nbytes) * (0xFF << (8 * np.arange(4)))).sum(1)
+        flat &= _i32(mask.astype(np.uint32))
+    got = blake2s_cuda.hash_words(words, nbytes, lib=hostlib)
+    assert got.shape == lead + (8,)
+    np.testing.assert_array_equal(
+        got.numpy(), blake2s.hash_words_plain(words, nbytes).numpy())
+    if not dirty:
+        np.testing.assert_array_equal(got.numpy().view(np.uint32),
+                                      _blake2s_words(words, nbytes))
+
+
+@pytest.mark.parametrize("links", [0, 1, 9])
+def test_host_hash_chain(hostlib, links):
+    """The chain mode against prg.chain_entries' plain loop on [2, 6]
+    seeds: the raw seed first, then `links` links."""
+    seeds = _words(np.random.RandomState(links), (2, 6, 8))
+    got = blake2s_cuda.chain_entries(seeds, links, lib=hostlib)
+    assert got.shape == (2, 6, links + 1, 8)
+    np.testing.assert_array_equal(
+        got.numpy(), prg.chain_entries_plain(seeds, links + 1).numpy())
+    assert torch.equal(got[..., 0, :], seeds)
+
+
+@pytest.mark.parametrize("fault", ["nbytes_past_words", "int64",
+                                   "negative_links", "chain_width",
+                                   "cpu_without_a_host_build"])
+def test_host_hash_wrapper_rejects(hostlib, fault):
+    """The wrapper raises on what the kernel does not take, before any
+    launch; the entry point refuses the same operands on its own."""
+    w = torch.zeros((3, 9), dtype=torch.int32)
+    before = dict(blake2s_cuda.launches)
+    call = {"nbytes_past_words": lambda: blake2s_cuda.hash_words(
+                w, 37, lib=hostlib),
+            "int64": lambda: blake2s_cuda.hash_words(
+                w.to(torch.int64), 33, lib=hostlib),
+            "negative_links": lambda: blake2s_cuda.chain_entries(
+                w[:, :8], -1, lib=hostlib),
+            "chain_width": lambda: blake2s_cuda.chain_entries(
+                w, 2, lib=hostlib),
+            "cpu_without_a_host_build": lambda: blake2s_cuda.hash_words(
+                w, 33)}[fault]
+    with pytest.raises((TypeError, ValueError)):
+        call()
+    assert blake2s_cuda.launches == before
+    out = torch.empty((3, 8), dtype=torch.int32)
+    ok = dict(src=w.data_ptr(), dst=out.data_ptr(), n=3, words=9, nbytes=33,
+              chain=0, links=0)
+    bad = {"nbytes_past_words": dict(nbytes=37), "int64": dict(words=0),
+           "negative_links": dict(words=8, nbytes=32, chain=1, links=-1),
+           "chain_width": dict(chain=1, links=2),
+           "cpu_without_a_host_build": dict(dst=out.data_ptr() + 4)}[fault]
+    for f, rc in ((ok, 0), ({**ok, **bad}, 1)):
+        assert hostlib.stark_hash_words(
+            ctypes.byref(_build.HashArgs(**f)), None) == rc
+
+
+def test_host_hash_counts_launches_and_skips_empty_batches(hostlib):
+    before = dict(blake2s_cuda.launches)
+    assert blake2s_cuda.hash_words(torch.zeros((0, 16), dtype=torch.int32),
+                                   64, lib=hostlib).shape == (0, 8)
+    assert blake2s_cuda.chain_entries(torch.zeros((2, 0, 8),
+                                                  dtype=torch.int32), 3,
+                                      lib=hostlib).shape == (2, 0, 4, 8)
+    assert blake2s_cuda.launches == before
+    blake2s_cuda.hash_words(torch.zeros((2, 16), dtype=torch.int32), 64,
+                            lib=hostlib)
+    blake2s_cuda.chain_entries(torch.zeros((2, 8), dtype=torch.int32), 3,
+                               lib=hostlib)
+    assert blake2s_cuda.launches == {
+        "hash_words": before["hash_words"] + 1,
+        "hash_chain": before["hash_chain"] + 1}
+
+
+def test_plain_hashes_and_walks_do_not_reach_the_dispatch(monkeypatch):
+    """The plain walks, the plain chain and the plain hash hash through
+    hash_words_plain: with the dispatch broken they still run; a tensor on
+    neither the CPU nor the card gets no fallback."""
+    def broken(*args):
+        raise AssertionError("a plain version called the hash's dispatch")
+
+    monkeypatch.setattr(blake2s, "hash_words", broken)
+    monkeypatch.setattr(blake2s_cuda, "hash_words", broken)
+    monkeypatch.setattr(blake2s_cuda, "chain_entries", broken)
+    rng = np.random.RandomState(3)
+    val, sib = _words(rng, (2, 4, 8)), _words(rng, (2, 4, 8))
+    wit = _words(rng, (2, 4, 5, 8))
+    ti = _start_index(8, 5).reshape(2, 4)
+    assert merkle_cuda.walk_leaf_levels_plain(val, sib, wit, ti,
+                                              3).shape == (2, 4, 8)
+    assert merkle_cuda.walk_branches_plain(
+        val, sib, wit, ti, torch.full((2, 4), 5, dtype=torch.int32)
+    ).shape == (2, 4, 8)
+    res, ok = merkle_cuda.walk_quads_plain(val, sib, wit, ti, 2)
+    assert res.shape == (2, 1, 8) and ok.shape == (2, 1)
+    assert prg.chain_entries_plain(val, 3).shape == (2, 4, 3, 8)
+    monkeypatch.undo()
+    meta = torch.zeros((2, 8), dtype=torch.int32, device="meta")
+    for call in (lambda: blake2s.hash_words(meta, 32),
+                 lambda: prg.chain_entries(meta, 3)):
+        with pytest.raises(ValueError):
+            call()

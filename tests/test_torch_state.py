@@ -188,4 +188,4 @@ def test_kernel_build_raises_without_a_compiler(monkeypatch, tmp_path):
     monkeypatch.setitem(_build._state, "lib", None)
     with pytest.raises(RuntimeError, match="nvcc"):
         _build.load()
-    assert len(_build.source_hash()) == 16 and len(_build.sources()) == 7
+    assert len(_build.source_hash()) == 16 and len(_build.sources()) == 8

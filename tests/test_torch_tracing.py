@@ -22,6 +22,7 @@ import prover
 import stark_verifier_tpu_torch as svt
 from stark_verifier_tpu_torch import profiling
 from stark_verifier_tpu_torch.config import StarkConfig
+from stark_verifier_tpu_torch.ops import blake2s, blake2s_cuda, prg
 from stark_verifier_tpu_torch.parallel import mesh as M
 from stark_verifier_tpu_torch.proofio import ingest
 from stark_verifier_tpu_torch.protocol import verify as V
@@ -142,7 +143,8 @@ def test_stream_spans_nest_by_layer_and_name_their_chunk(traced):
                                           "stream.stage", "verify"]
         assert kids[1].attrs == {}            # no device buffers here
         assert kids[2].attrs == {"proofs": d.attrs["proofs"],
-                                 "shared_merkle": True, "runtime": False}
+                                 "shared_merkle": True, "runtime": False,
+                                 "hash_launches": 0}
         assert {k.name for k in _children(spans, kids[2])} == VERIFY_PHASES
 
     collects = _named(spans, "stream.collect")
@@ -194,6 +196,34 @@ def test_the_entry_opens_its_phases(traced):
     assert kids[1].attrs == {"built": False}
     assert {k.name for k in _children(spans, kids[3])} == VERIFY_PHASES
     assert [k.name for k in _children(spans, bad)] == ["entry.parse"]
+
+
+def test_the_verify_span_counts_the_hash_kernels_launches(traced, pb,
+                                                         monkeypatch):
+    """On the CPU no hash kernel launches: every verify span reads 0.  With
+    each hash call counted as a launch of the kernel, a shared-walk verify
+    reads one chain, one k-hash and the dense tails' levels, and nothing
+    the plain hashes do besides."""
+    verifies = _named(traced["spans"], "verify")
+    assert len(verifies) == 3
+    assert all(s.attrs["hash_launches"] == 0 for s in verifies)
+
+    def counting(fn, mode):
+        def call(*args):
+            blake2s_cuda.launches[mode] += 1
+            return fn(*args)
+        return call
+
+    monkeypatch.setattr(blake2s, "hash_words",
+                        counting(blake2s.hash_words, "hash_words"))
+    monkeypatch.setattr(prg, "chain_entries",
+                        counting(prg.chain_entries, "hash_chain"))
+    since = time.time_ns()
+    with profile(activities=[ProfilerActivity.CPU]):
+        assert svt.verify_proof_bytes(pb, log_steps=9, device="cpu")
+    verify, = (s for s in profiling.spans()
+               if s.name == "verify" and s.start_ns >= since)
+    assert verify.attrs["hash_launches"] == 8
 
 
 def test_spans_lie_on_the_profilers_clock(traced):
