@@ -21,7 +21,7 @@ the CPU):
                  A, B and F also with all groups of a call site in one
                  launch, as the path runs them; C on the proof's strided poly
                  rows, its ok bytes and evaluation words; D at power 3 and 2,
-                 with its K table and with K rows; the multiply's edge
+                 with its K table and with one of 65,536 rows; the multiply's edge
                  operands in C, D and E; the one-stage NTT kernel on a
                  middle stage of 2^20 points and on a cross stage as the
                  sharded NTT launches it; the several-stage NTT kernel
@@ -53,11 +53,20 @@ the CPU):
                  a short depth) routed by is_rectangular, and
                  verify_proof_bytes on a ragged blob the oracle rejects;
   7. runtime statement -- make_general_verifier with input, round constants
-                 and output as tensors (the constants go through an iNTT, one
-                 launch of the several-stage kernel, and the iNTT is held
-                 against its plain version; kernel E takes the four boundary
-                 products); verify_mimc on a list of blobs; a fresh power-2
-                 proof through SquareStatement;
+                 and output as tensors (the call's K table from the
+                 constants' iNTT and a forward NTT, one launch of the
+                 several-stage kernel each; the iNTT held against its plain
+                 version, the table against the statement's and its plain
+                 version; kernel E takes the four boundary products);
+                 verify_mimc on a list of blobs; a fresh power-2 proof
+                 through SquareStatement;
+ 14. one constant a round (run after phase 7) -- 2^13 steps with 8,192
+                 round constants: a fresh proof, the verifier's set-up, and
+                 1,024 proofs (honest, a bit flipped at each protocol site)
+                 through make_general_verifier and verify_mimc, verdicts the
+                 oracle's, a moved output rejecting all; the call's K table
+                 (4 launches of the several-stage NTT kernel) equal to the
+                 statement's (`one constant a round {...}` line);
   8. strict   -- the golden proof accepts, a changed POINTS word rejects
                  under strict and accepts under parity, trailing bytes reject;
   9. bytes to verdicts -- 4,096 distinct blobs (seeded picks of 18 kinds:
@@ -521,11 +530,11 @@ def check_rows(gen, ops, cfg, tables, g2_words, b, reps):
     return rec
 
 
-def spot_inputs(gen, cfg, tabs, b, power, k_rows):
+def spot_inputs(gen, cfg, tabs, b, power):
     """Kernel D's operands at the path's shapes: the proof's main and
     lincomb value rows (raw words, 0xFFFFFFFF words mixed in), positions in
-    the domain, raw k-hash words, canonical interpolant rows, and, with
-    `k_rows`, a packed K row a position (the runtime-statement path).
+    the domain, raw k-hash words, canonical interpolant rows, the packed
+    tables `tabs`.
     Random inputs fail every check: the committed values are rewritten so
     that the transition holds at every third position from 0, the lincomb
     from 1 and the boundary from 2."""
@@ -537,8 +546,6 @@ def spot_inputs(gen, cfg, tabs, b, power, k_rows):
                         dtype=torch.int64)
     ic1 = F.canon(rand_limbs(gen, (b,)))
     ic0 = F.canon(rand_limbs(gen, (b,))).flip(0).contiguous()
-    kr = (F.limbs_to_words_le(F.canon(rand_limbs(gen, (b, n)))).contiguous()
-          if k_rows else None)
     # the right-hand sides, from the plain version's limbs and gathers
     # (input making stays off the multiply kernel)
     mul = field_cuda.mul_mod_plain
@@ -555,8 +562,7 @@ def spot_inputs(gen, cfg, tabs, b, power, k_rows):
     x, xs, z, z2 = (F.words_le_to_limbs(t[i]) for t, i in (
         (tabs.g2, pos & mask), (tabs.g2, (pos << cfg.log_steps) & mask),
         (tabs.z, pos & mask), (tabs.z2, pos & mask)))
-    k = F.words_le_to_limbs(kr if k_rows
-                            else tabs.k[pos & (tabs.k.shape[0] - 1)])
+    k = F.words_le_to_limbs(tabs.k[pos & (tabs.k.shape[0] - 1)])
     ks = F.words_be_to_limbs(kh)[:, None]
     p_pow = [(mul(p, p), p)] if power == 3 else [(p, p)]
     rhs_t = F.limbs_to_words_be(F.mul_sum_mod(p_pow + [(z, d)], extra=[k]))
@@ -568,11 +574,11 @@ def spot_inputs(gen, cfg, tabs, b, power, k_rows):
     mv[:, 0::3, 1, 0] = rhs_t[:, 0::3]
     lin[:, 1::3] = rhs_l[:, 1::3]
     mv[:, 2::3, 0, 0] = rhs_b[:, 2::3]           # (changes P: only bit 1 there)
-    return (main, lin, pos, kh, ic1, ic0, tabs, kr)
+    return (main, lin, pos, kh, ic1, ic0, tabs)
 
 
-def check_spot(gen, ops, cfg, tabs, b, power, reps, k_rows=False):
-    args = spot_inputs(gen, cfg, tabs, b, power, k_rows)
+def check_spot(gen, ops, cfg, tabs, b, power, reps):
+    args = spot_inputs(gen, cfg, tabs, b, power)
     got = spot_cuda.spot_checks(*args, power=power)
     torch.cuda.synchronize()
     want = spot_cuda.spot_checks_plain(*args, power=power)
@@ -586,8 +592,8 @@ def check_spot(gen, ops, cfg, tabs, b, power, reps, k_rows=False):
     # position, five table rows (x, x^steps, Z, Z2, K); per proof the k-hash
     # words and the two interpolant rows; out three bytes a position
     moved = b * n * (96 + 32 + 32 + 8 + 5 * 32 + 3) + b * (128 + 2 * 64)
-    label = (f"B={b} positions={n} power={power} "
-             f"{'K rows' if k_rows else 'K table'}")
+    label = (f"B={b} positions={n} power={power} K table "
+             f"{tabs.k.shape[0]} rows")
     rec = measure(label, lambda: spot_cuda.spot_checks(*args, power=power),
                   lambda: spot_cuda.spot_checks_plain(*args, power=power),
                   [got], [want], moved, [(b * n, ops[f"probe_spot{power}"])],
@@ -1026,10 +1032,13 @@ def kernel_phase(cfg, tables, ops):
     tabs = V._spot_tables(tables, cfg, DEV)
     c_case = check_rows(gen, ops, cfg, tables, tabs.g2, b, 20)
     # kernel D: power 3 on the static path first (the row's numbers), power
-    # 2, and K rows (the runtime-statement path)
+    # 2, and the K table of one constant a round (8,192 constants: 65,536
+    # rows, the runtime-statement path's own table there)
+    k_one = F.limbs_to_words_le(F.canon(rand_limbs(gen, (cfg.precision,))))
     d_cases = [check_spot(gen, ops, cfg, tabs, b, cfg.power, 20),
                check_spot(gen, ops, cfg, tabs, b, 2, 20),
-               check_spot(gen, ops, cfg, tabs, b, cfg.power, 20, k_rows=True)]
+               check_spot(gen, ops, cfg, tabs._replace(k=k_one), b,
+                          cfg.power, 20)]
     # kernel E at the runtime-statement path's shapes (a boundary product of
     # one chunk and of the whole batch), at strided upper-half views of
     # butterfly blocks and a [64, 16] x [16] scaling (operand shapes of a
@@ -1704,16 +1713,17 @@ def runtime_statement_path(cfg, blob, tree, want, kernels, consts, out):
     require_launches("runtime-statement path", counts,
                      ("mul_mod", "walk_leaf_levels", "walk_quads",
                       "fri_rows", "spot_checks"))
-    # the iNTT of the constants: one launch of the several-stage kernel for
-    # its six stages (not six of the one-stage kernel), its products the
-    # kernel's own; kernel E keeps the four boundary products of a runtime
-    # input (iy1, -iy1, iy0, -last iy0)
+    # the call's K table: the iNTT of the 64 constants and the forward NTT
+    # of 512 points, one launch of the several-stage kernel each (not one of
+    # the one-stage kernel a stage), their products the kernel's own;
+    # kernel E keeps the four boundary products of a runtime input (iy1,
+    # -iy1, iy0, -last iy0)
     if (counts["ntt_block"], counts["ntt_stage"], counts["mul_mod"]) != (
-            1, 0, 4):
+            2, 0, 4):
         fail(f"the runtime-statement path launched the several-stage NTT "
              f"kernel {counts['ntt_block']} times, the one-stage kernel "
              f"{counts['ntt_stage']} and kernel E {counts['mul_mod']}, "
-             f"expected 1, 0 and 4")
+             f"expected 2, 0 and 4")
     for k in kernels:
         if k["name"] == "mul_mod":
             k["launches"], k["launches_on"] = (counts["mul_mod"],
@@ -1733,6 +1743,15 @@ def runtime_statement_path(cfg, blob, tree, want, kernels, consts, out):
              "the plain version")
     log(f"runtime-statement path: the iNTT of its {cfg.num_constants} "
         f"constants against the plain version: max_abs_err {err}")
+    gmod, _ = V._make_general_cached(cfg, True, str(DEV))
+    k_call = V.runtime_k_words(consts_l, gmod)
+    if not torch.equal(k_call, gmod.k_words):
+        fail("the call's K table of the formula constants differs from the "
+             "statement's")
+    if not torch.equal(k_call.cpu(), V.runtime_k_words(consts_l.cpu(), gmod)):
+        fail("the call's K table differs from its plain version")
+    log(f"runtime-statement path: the call's K table ({gmod.k_period} rows) "
+        f"equals the statement's and its plain version's")
     none = torch.zeros(BATCH, dtype=torch.bool)
     expect_verdicts("wrong output", gfn(tree, inp_l, consts_l,
                                         limbs_on_card((out + 1) % P)), none)
@@ -1787,6 +1806,83 @@ def runtime_statement_path(cfg, blob, tree, want, kernels, consts, out):
         f"rejects, the cubic verifier rejects both "
         f"({time.perf_counter() - t0:.1f} s)")
     return lambda t: gfn(t, inp_l, consts_l, out_l)
+
+
+def one_constant_a_round_phase():
+    """Phase 14.  2^13 steps with 8,192 round constants (i^7) XOR 42, one a
+    round: a fresh proof; the verifier built (the statement's tables, the
+    host K table of 65,536 rows by NTT); 1,024 proofs, the honest one and a
+    bit flipped at each protocol site in turn, through one call of
+    make_general_verifier (4 launches of the several-stage NTT kernel: the
+    2^13 iNTT and the 2^16 transform of the call's K table, equal to the
+    statement's) and one of verify_mimc, every verdict the oracle's; a moved
+    output rejects every proof.  Prints a `one constant a round {...}` line
+    of seconds and milliseconds."""
+    cfg = StarkConfig(log_steps=LOG_STEPS, num_constants=1 << LOG_STEPS)
+    consts = [(i ** 7) ^ 42 for i in range(cfg.num_constants)]
+    rec = {"constants": cfg.num_constants, "batch": BATCH}
+    t0 = time.perf_counter()
+    blob, out = prover.prove_to_bytes(3, cfg.num_steps, consts)
+    rec["prove_s"] = time.perf_counter() - t0
+    kinds = {"golden": blob, **site_flips(cfg, blob)}
+    t0 = time.perf_counter()
+    verdict = {k: oracle_verdict(b, cfg, 3, consts, out)
+               for k, b in kinds.items()}
+    rec["oracle_s"] = time.perf_counter() - t0
+    if [k for k, v in verdict.items() if v] != ["golden"]:
+        fail(f"one constant a round: the oracle's verdicts {verdict}")
+    if oracle_verdict(blob, cfg, 3, consts, (out + 1) % P):
+        fail("one constant a round: the oracle accepts a moved output")
+
+    t0 = time.perf_counter()
+    gfn, tables = V.make_general_verifier(cfg, device=DEV)
+    torch.cuda.synchronize()
+    rec["setup_s"] = time.perf_counter() - t0
+    rec["k_rows"] = tables.k_period
+    names = list(kinds)
+    order = [i % len(names) for i in range(BATCH)]
+    few = dev_io.to_device(dev_io.stack_proofs(
+        [dev_io.proof_tree(wire.parse_and_validate(kinds[k], cfg))
+         for k in names]), DEV)
+    at = torch.tensor(order, device=DEV)
+    batch = dev_io.tree_map(lambda x: x[at].contiguous(), few)
+    want = torch.tensor([verdict[names[i]] for i in order])
+    inp_l, out_l, consts_l = (limbs_on_card(3), limbs_on_card(out),
+                              limbs_on_card(consts))
+    t0 = time.perf_counter()
+    got, counts = counted(lambda: gfn(batch, inp_l, consts_l, out_l))
+    rec["first_call_ms"] = 1e3 * (time.perf_counter() - t0)
+    expect_verdicts("one constant a round", got, want)
+    if (counts["ntt_block"], counts["ntt_stage"]) != (4, 0):
+        fail(f"one constant a round: NTT launches {counts}, expected 4 of "
+             f"the several-stage kernel and none of the one-stage kernel")
+    rec["ntt_block_launches"] = counts["ntt_block"]
+    gmod, _ = V._make_general_cached(cfg, True, str(DEV))
+    if not torch.equal(V.runtime_k_words(consts_l, gmod), gmod.k_words):
+        fail("one constant a round: the call's K table differs from the "
+             "statement's")
+    calls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        expect_verdicts("one constant a round, timed",
+                        gfn(batch, inp_l, consts_l, out_l), want)
+        calls.append(1e3 * (time.perf_counter() - t0))
+    rec["call_ms"] = calls
+    rec["call_ms_median"] = statistics.median(calls)
+    rec["k_table_device_ms"] = device_ms(
+        lambda: V.runtime_k_words(consts_l, gmod))
+    expect_verdicts("one constant a round, moved output",
+                    gfn(batch, inp_l, consts_l, limbs_on_card((out + 1) % P)),
+                    torch.zeros(BATCH, dtype=torch.bool))
+    t0 = time.perf_counter()
+    got = sv.verify_mimc(3, cfg.num_steps, consts, out,
+                         [kinds[names[i]] for i in order], device=DEV)
+    rec["verify_mimc_s"] = time.perf_counter() - t0
+    if got.tolist() != want.tolist():
+        fail("one constant a round: verify_mimc's verdicts differ from the "
+             "oracle's")
+    log("one constant a round " + json.dumps(rec))
 
 
 def strict_phase(cfg, blob, tree_np):
@@ -1866,10 +1962,9 @@ def flip_bit(blob, word):
     return bytes(b)
 
 
-def stream_kinds(cfg, blob, consts, out):
-    """The kinds of blob the stream mixes, each with the oracle's verdict
-    and what the port's host parse makes of it: {name: (blob, verdict,
-    parses, ragged, device-parse reroutes it)}."""
+def site_flips(cfg, blob):
+    """{"flip@<site>": blob with one bit flipped in a word in the middle of
+    a record of that protocol site} for every site of SITES."""
     lay = SL.canonical_layout(cfg)
     _tag, root2, c0, p0 = lay.levels[0]
     p2 = lay.levels[2][3]
@@ -1880,7 +1975,6 @@ def stream_kinds(cfg, blob, consts, out):
     def wit(g, i):
         return rec(g, i) + 2 + 2 * g["vw"] + 8 * (g["d"] // 2) + 3
 
-    # one word in the middle of a record of each protocol site of SITES
     sites = {
         "merkle_root": 3, "l_merkle_root": 11, "root2": root2 + 3,
         "col_value": rec(c0, 0) + 4, "col_sibling": rec(c0, 0) + 1 + 8 + 3,
@@ -1889,8 +1983,16 @@ def stream_kinds(cfg, blob, consts, out):
         "main_witness": wit(lay.main, 7), "lincomb_value": rec(lay.lincomb, 4) + 4,
         "lincomb_sibling": rec(lay.lincomb, 4) + 1 + 8 + 3,
     }
+    return {f"flip@{k}": flip_bit(blob, w) for k, w in sites.items()}
+
+
+def stream_kinds(cfg, blob, consts, out):
+    """The kinds of blob the stream mixes, each with the oracle's verdict
+    and what the port's host parse makes of it: {name: (blob, verdict,
+    parses, ragged, device-parse reroutes it)}."""
+    lay = SL.canonical_layout(cfg)
     blobs = {"golden": blob}
-    blobs.update({f"flip@{k}": flip_bit(blob, w) for k, w in sites.items()})
+    blobs.update(site_flips(cfg, blob))
     blobs["truncated"] = blob[:len(blob) // 3]
     blobs["trailing"] = blob + b"trailing bytes"
     blobs["ragged"] = ragged_blob(blob)
@@ -2693,6 +2795,7 @@ def main():
     fn_u = unshared_path(cfg, blob, tree_np, tree, want, kernels, consts, out)
     general = runtime_statement_path(cfg, blob, tree, want, kernels, consts,
                                      out)
+    one_constant_a_round_phase()
     strict_phase(cfg, blob, tree_np)
     kinds, names = stream_phase(cfg, blob, tree_np, consts, out)
     rank_phase(cfg, blob, want, kinds, names, kernels)

@@ -46,7 +46,7 @@ class SpotArgs(ctypes.Structure):
     stark_spot_args: the same fields in the same order)."""
     _fields_ = [("main", _p), ("lin", _p), ("pos", _p), ("kh", _p),
                 ("ic1", _p), ("ic0", _p), ("g2", _p), ("z", _p), ("z2", _p),
-                ("k", _p), ("k_pos", _p), ("out", _p),
+                ("k", _p), ("out", _p),
                 ("main_stride", _ll), ("lin_stride", _ll), ("kh_stride", _ll),
                 ("ic1_stride", _ll), ("ic0_stride", _ll), ("rows", _ll),
                 ("k_rows", _ll), ("group", _ll), ("n", _ll),

@@ -127,13 +127,16 @@ class StatementTables:
         g2_int = self._powers_int(self.G2, cfg.precision)
         self.g2_powers = fp.ints_to_limbs_fast(g2_int)
         # K(x) = minipoly(x^skips2): x^skips2 = G2^(skips2*pos mod precision)
-        # has order precision/skips2, so K takes that many distinct values
+        # has order precision/skips2, so K takes that many distinct values,
+        # row t being minipoly(k_root^t): the k_period-point transform of the
+        # zero-padded minipoly with root k_root = G2^skips2
         self.k_period = cfg.precision // math.gcd(cfg.precision, cfg.skips2)
+        self.k_root = k_root(cfg)
         minipoly = self._intt_host(
             [(i ** 7) ^ 42 for i in range(cfg.num_constants)],
             self.minipoly_root)
-        kb = pow(self.G2, cfg.skips2, m)
-        self.k_table = self._eval_table(minipoly, kb, self.k_period)
+        self.k_table = fp.ints_to_limbs_fast(_dft_host(
+            minipoly + [0] * (self.k_period - len(minipoly)), self.k_root, m))
 
         # Z(x) = (x^steps - 1)/(x - last) and Z2(x) = (x-1)(x-last) take one
         # value per domain position x = G2^pos (main.rs:175-176,183-185):
@@ -196,45 +199,44 @@ class StatementTables:
             vals[i] = cur
         return vals
 
-    def _eval_table(self, coeffs: list, base: int, n: int) -> np.ndarray:
-        """[n, 16]: poly(base^t) for t < n."""
-        m = self.cfg.modulus
-        out = np.zeros((n, fp.NLIMBS), dtype=np.uint32)
-        x = 1
-        for t in range(n):
-            acc, pw = 0, 1
-            for c in coeffs:
-                acc = (acc + c * pw) % m
-                pw = pw * x % m
-            out[t] = fp.int_to_limbs(acc)
-            x = x * base % m
-        return out
-
     def _intt_host(self, vals: list, root: int) -> list:
         """Host inverse NTT matching the reference recursion (fft.rs:64-86)."""
         m = self.cfg.modulus
-
-        def _fft(v, roots):
-            if len(v) <= 4:
-                n = len(roots)
-                return [sum(v[j] * roots[(i * j) % n] for j in range(n)) % m
-                        for i in range(n)]
-            left = _fft(v[::2], roots[::2])
-            right = _fft(v[1::2], roots[::2])
-            out = [0] * len(v)
-            for i, (a, b) in enumerate(zip(left, right)):
-                br = b * roots[i]
-                out[i] = (a + br) % m
-                out[i + len(left)] = (a - br) % m
-            return out
-
-        roots = [1, root % m]
-        while roots[-1] != 1:
-            roots.append(roots[-1] * root % m)
-        roots.reverse()
-        roots.pop()
         inv_len = pow(len(vals), m - 2, m)
-        return [x * inv_len % m for x in _fft(vals, roots)]
+        return [x * inv_len % m
+                for x in _dft_host(vals, pow(root, m - 2, m), m)]
+
+
+def k_root(cfg: StarkConfig) -> int:
+    """G2^skips2, the root of the K table's transform: K(x) at x = G2^pos
+    is row pos mod k_period of the table."""
+    m = cfg.modulus
+    return pow(pow(7, (m - 1) // cfg.precision, m), cfg.skips2, m)
+
+
+def _dft_host(vals: list, root: int, m: int) -> list:
+    """out[i] = sum_j vals[j] root^(i j) mod m for i < len(vals), root of
+    order len(vals) (a power of two): the reference's even/odd recursion
+    (fft.rs:37-62) on host ints, O(n log n)."""
+
+    def _fft(v, roots):
+        if len(v) <= 4:
+            n = len(roots)
+            return [sum(v[j] * roots[(i * j) % n] for j in range(n)) % m
+                    for i in range(n)]
+        left = _fft(v[::2], roots[::2])
+        right = _fft(v[1::2], roots[::2])
+        out = [0] * len(v)
+        for i, (a, b) in enumerate(zip(left, right)):
+            br = b * roots[i]
+            out[i] = (a + br) % m
+            out[i + len(left)] = (a - br) % m
+        return out
+
+    roots = [1] * len(vals)
+    for i in range(1, len(vals)):
+        roots[i] = roots[i - 1] * root % m
+    return _fft(vals, roots)
 
 
 def _batch_inv_host(vals: list, m: int) -> list:
@@ -303,4 +305,5 @@ def tables_from_reference(arrays: dict, cfg: StarkConfig) -> StatementTables:
             raise ValueError(
                 f"{name}: shape {getattr(t, name).shape}, family expects {shape}")
     t.level_moduli = [int(v) for v in t.level_moduli_np]
+    t.k_root = k_root(cfg)
     return t

@@ -19,7 +19,7 @@
 // byte-swapped in registers), the raw k-hash words, the spot positions, and
 // four statement tables of 8 little-endian words a row (the powers of G2,
 // Z, Z2, K), from which it gathers x, x^steps, Z(x), Z2(x) and K(x) itself.
-// On the runtime-statement path K(x) arrives as one row a position instead.
+// On the runtime-statement path the K table is the call's own.
 //
 // What bounds it on an H100: the arithmetic, by issue.  A position needs
 // about 3,900 instructions of products, reductions and compares at power 3
@@ -63,10 +63,9 @@
 //   ic1, ic0 [proofs, 16]: I1, I0 as 16-bit limbs, canonical (stride 0:
 //     one row for every proof);
 //   g2, z, z2 [rows, 8] with rows a power of two; k [k_rows, 8] (a power of
-//     two) or, when k_pos is set, k_pos [proofs * group, 8]: canonical,
-//     little endian.  x = g2[pos], x^steps = g2[pos << log_steps], Z(x) =
-//     z[pos], Z2(x) = z2[pos] (indices masked by rows - 1), K(x) =
-//     k[pos & (k_rows - 1)] or k_pos's row;
+//     two): canonical, little endian.  x = g2[pos], x^steps =
+//     g2[pos << log_steps], Z(x) = z[pos], Z2(x) = z2[pos] (indices masked
+//     by rows - 1), K(x) = k[pos & (k_rows - 1)];
 //   out [proofs * group, 3] bytes.
 struct stark_spot_args {
   const uint32_t* main;
@@ -79,7 +78,6 @@ struct stark_spot_args {
   const uint32_t* z;
   const uint32_t* z2;
   const uint32_t* k;
-  const uint32_t* k_pos;
   uint8_t* out;
   long long main_stride;
   long long lin_stride;
@@ -167,9 +165,7 @@ STARK_HD stark_spot_part_in stark_spot_operands(const stark_spot_args& g,
   const uint32_t* xs = g.g2 + ((pos << g.log_steps) & mask) * 8;
   const uint32_t* z = g.z + (pos & mask) * 8;
   const uint32_t* z2 = g.z2 + (pos & mask) * 8;
-  const uint32_t* kv =
-      g.k_pos ? g.k_pos + i * 8
-              : g.k + (pos & ((unsigned long long)g.k_rows - 1)) * 8;
+  const uint32_t* kv = g.k + (pos & ((unsigned long long)g.k_rows - 1)) * 8;
   const uint32_t* ic1 = g.ic1 + q * g.ic1_stride;
   const uint32_t* ic0 = g.ic0 + q * g.ic0_stride;
   // role:            0 transition  1 boundary  2 lincomb 1  3 lincomb 2
@@ -257,10 +253,9 @@ extern "C" int stark_spot_checks(const void* args, void* stream) {
   const stark_spot_args& g = *static_cast<const stark_spot_args*>(args);
   if ((g.power != 2 && g.power != 3) || g.group <= 0 || g.n < 0 ||
       g.n > 0x7FFFFFFFLL || g.n % g.group != 0 || !stark_pow2(g.rows) ||
-      g.log_steps < 0 || g.log_steps > 62)
+      !stark_pow2(g.k_rows) || g.log_steps < 0 || g.log_steps > 62)
     return 1;
   if (g.n == 0) return 0;
-  if (!g.k_pos && !stark_pow2(g.k_rows)) return 1;
   if (!stark_aligned16(g.main, g.main_stride) ||
       !stark_aligned16(g.lin, g.lin_stride) ||
       !stark_aligned16(g.kh, g.kh_stride) ||
@@ -268,7 +263,7 @@ extern "C" int stark_spot_checks(const void* args, void* stream) {
       !stark_aligned16(g.ic0, g.ic0_stride) ||
       !stark_aligned16(g.g2, 0) || !stark_aligned16(g.z, 0) ||
       !stark_aligned16(g.z2, 0) ||
-      !stark_aligned16(g.k_pos ? g.k_pos : g.k, 0) || g.pos == nullptr ||
+      !stark_aligned16(g.k, 0) || g.pos == nullptr ||
       g.out == nullptr)
     return 1;
 #if defined(__CUDACC__)

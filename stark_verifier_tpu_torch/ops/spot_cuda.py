@@ -34,7 +34,8 @@ class SpotTables(NamedTuple):
     """The statement tables kernel D gathers from, [rows, 8] int32 words of
     little-endian 32-bit limbs, canonical: g2 the powers of G2, z and z2 the
     Z and Z2 tables (all `precision` rows, a power of two), k the K table
-    (k_period rows, a power of two); log_steps gives x^steps = g2[pos <<
+    (k_period rows, a power of two: the statement's, or with run-time round
+    constants the call's own); log_steps gives x^steps = g2[pos <<
     log_steps]."""
     g2: torch.Tensor
     z: torch.Tensor
@@ -74,7 +75,7 @@ def spot_limbs_plain(raw5, tab5, ks4, ic1, ic0, power: int = 3):
 
 
 def spot_checks_plain(main_value, lincomb_value, positions, kh, ic1, ic0,
-                      tables: SpotTables, k_rows=None, power: int = 3):
+                      tables: SpotTables, power: int = 3):
     """Plain version of spot_checks: the limbs and gathers the kernel makes
     in registers, made as tensors, then spot_limbs_plain.  Table indices are
     masked as the kernel masks them (the verifier's positions are in range,
@@ -86,12 +87,9 @@ def spot_checks_plain(main_value, lincomb_value, positions, kh, ic1, ic0,
         mv[..., 0, 2, :], lincomb_value)], dim=-2)         # [..., n, 5, 16]
     pos = positions.to(torch.int64)
     mask = tables.g2.shape[0] - 1
-    if k_rows is None:
-        k = tables.k[pos & (tables.k.shape[0] - 1)]
-    else:
-        k = k_rows
     tab = [tables.g2[pos & mask], tables.g2[(pos << tables.log_steps) & mask],
-           tables.z[pos & mask], tables.z2[pos & mask], k]
+           tables.z[pos & mask], tables.z2[pos & mask],
+           tables.k[pos & (tables.k.shape[0] - 1)]]
     tab5 = torch.stack([F.words_le_to_limbs(t) for t in tab], dim=-2)
     ks4 = F.words_be_to_limbs(kh)[..., None, :, :]         # [..., 1, 4, 16]
     return spot_limbs_plain(raw5, tab5, ks4, ic1[..., None, :],
@@ -99,7 +97,7 @@ def spot_checks_plain(main_value, lincomb_value, positions, kh, ic1, ic0,
 
 
 def _spot_args(main_value, lincomb_value, positions, kh, ic1, ic0,
-               tables: SpotTables, k_rows, power: int) -> tuple:
+               tables: SpotTables, power: int) -> tuple:
     """(the kernel's SpotArgs, the verdicts [..., n, 3] bool it writes, the
     tensors the arguments point into) for spot_checks' operands on their
     device.  The tensors must outlive the launch."""
@@ -109,8 +107,6 @@ def _spot_args(main_value, lincomb_value, positions, kh, ic1, ic0,
     words = {"main_value": main_value, "lincomb_value": lincomb_value,
              "kh": kh, "ic1": ic1, "ic0": ic0, "g2": tables.g2,
              "z": tables.z, "z2": tables.z2, "k": tables.k}
-    if k_rows is not None:
-        words["k_rows"] = k_rows
     for name, t in words.items():
         if t.dtype != torch.int32 or t.device != dev:
             raise TypeError(f"spot_checks: {name}: expected int32 on {dev}, "
@@ -119,8 +115,7 @@ def _spot_args(main_value, lincomb_value, positions, kh, ic1, ic0,
         raise TypeError("spot_checks: positions must be int64")
     if (main_value.shape != lead + (2 * n, 24)
             or lincomb_value.shape != lead + (n, 8)
-            or kh.shape != lead + (4, 8)
-            or (k_rows is not None and k_rows.shape != lead + (n, 8))):
+            or kh.shape != lead + (4, 8)):
         raise ValueError("spot_checks: operand shapes disagree")
     ic1, ic0 = ic1.expand(lead + (16,)), ic0.expand(lead + (16,))
     for name in ("g2", "z", "z2", "k"):
@@ -132,7 +127,6 @@ def _spot_args(main_value, lincomb_value, positions, kh, ic1, ic0,
     if tables.z.shape[0] != rows or tables.z2.shape[0] != rows:
         raise ValueError("spot_checks: g2 / z / z2 tables differ in rows")
     positions = positions.contiguous()
-    k_rows = None if k_rows is None else k_rows.contiguous()
     ok = torch.empty(lead + (n, 3), dtype=torch.bool, device=dev)
     strides = [_build.proof_stride(t, nlead, f"spot_checks: {name}")
                for name, t in (("main_value", main_value),
@@ -142,32 +136,31 @@ def _spot_args(main_value, lincomb_value, positions, kh, ic1, ic0,
         main_value.data_ptr(), lincomb_value.data_ptr(), positions.data_ptr(),
         kh.data_ptr(), ic1.data_ptr(), ic0.data_ptr(), tables.g2.data_ptr(),
         tables.z.data_ptr(), tables.z2.data_ptr(), tables.k.data_ptr(),
-        None if k_rows is None else k_rows.data_ptr(), ok.data_ptr(),
+        ok.data_ptr(),
         *strides, rows, tables.k.shape[0], n, ok.numel() // 3,
         tables.log_steps, power)
-    return args, ok, (positions, k_rows)
+    return args, ok, positions
 
 
 def spot_checks(main_value, lincomb_value, positions, kh, ic1, ic0,
-                tables: SpotTables, k_rows=None, power: int = 3):
+                tables: SpotTables, power: int = 3):
     """Fused transition / boundary / lincomb checks at every spot position.
 
     main_value [..., 2n, 24] the main trace's value rows (rows 2k, 2k+1 at
     position k and its g1 neighbour) and lincomb_value [..., n, 8], raw
     proof words; positions [..., n] int64; kh [..., 4, 8] the raw k1..k4
     hash words; ic1/ic0 [..., 16] canonical limbs of the boundary
-    interpolant; tables the packed statement tables; k_rows [..., n, 8]
-    packed K(x) rows in place of the K table's, or None; power: transition
+    interpolant; tables the packed statement tables; power: transition
     exponent (2 or 3).  Returns ok [..., n, 3] bool: transition, boundary,
     lincomb."""
     if power not in (2, 3):
         raise ValueError(f"unsupported transition power {power}")
     if positions.device.type == "cpu":
         return spot_checks_plain(main_value, lincomb_value, positions, kh,
-                                 ic1, ic0, tables, k_rows, power)
+                                 ic1, ic0, tables, power)
     dev = positions.device
     args, ok, keep = _spot_args(main_value, lincomb_value, positions, kh,
-                                ic1, ic0, tables, k_rows, power)
+                                ic1, ic0, tables, power)
     lib = _build.load()
     with torch.cuda.device(dev):
         rc = lib.stark_spot_checks(

@@ -12,8 +12,8 @@ every proof of a batch through the same fixed-shape tensor program:
   * FRI rows: one kernel over all levels and queries, from the proof's
     rows and roots to a verdict a query                   (ops/fri_cuda.py)
   * 80 constraint spot checks: one kernel                (ops/spot_cuda.py)
-  * runtime round constants: an iNTT, one launch of the several-stage
-    NTT kernel                                              (ops/ntt.py)
+  * runtime round constants: the call's K table from an iNTT and a
+    forward NTT, launches of the several-stage NTT kernel   (ops/ntt.py)
 
 Every assert of the reference becomes a boolean lane; the proof verdict is
 their AND, so a batch returns per-proof verdicts instead of panicking.
@@ -102,6 +102,19 @@ def _spot_tables(tables, cfg: StarkConfig, device) -> spot_cuda.SpotTables:
     return spot_cuda.SpotTables(
         *(_packed(tables, name, device) for name, _ in _PACKED_TABLES),
         log_steps=cfg.log_steps)
+
+
+def runtime_k_words(constants_limbs, tables) -> torch.Tensor:
+    """The K table of run-time round constants [k, 16] limbs, packed [k_period,
+    8] as kernel D reads it: row t is minipoly(k_root^t), the minipoly
+    recovered by the constants' iNTT (main.rs:125), zero-padded to k_period
+    points and transformed forward with root k_root = G2^skips2.  Two NTTs
+    a call, whatever k: one launch each of the several-stage kernel up to
+    2^10 points, two up to 2^20."""
+    minipoly = ntt.intt(constants_limbs, tables.minipoly_root)    # [k, 16]
+    padded = torch.cat([minipoly, minipoly.new_zeros(
+        (tables.k_period - minipoly.shape[0], fp.NLIMBS))])
+    return F.limbs_to_words_le(ntt.ntt(padded, tables.k_root))
 
 
 def _fri_checks(l_root_words, fri, tables, cfg: StarkConfig,
@@ -280,9 +293,8 @@ def verify_mimc_proof(tree, inp, output_limbs, tables, cfg: StarkConfig,
     output_limbs [..., 16] the claimed MiMC output.  inp: a host int (fast
     path: the boundary interpolant folds to host constants) or [..., 16]
     limbs on the tree's device.  constants_limbs: optional [k, 16] RUNTIME
-    round constants (k = cfg.num_constants) -- when given, the constants
-    mini-polynomial is recovered with an iNTT (main.rs:125) and K(x)
-    evaluated by Horner, instead of the statement-static K table.  The
+    round constants (k = cfg.num_constants) -- when given, the call's own K
+    table (runtime_k_words) takes the place of the statement's.  The
     modulus stays fixed (the limb reduction is specialized to p).  tables:
     StatementTables or a verifier module (whose buffers are used as they
     are).  Returns [...] bool verdicts.
@@ -381,21 +393,18 @@ def _verify_mimc(tree, inp, output_limbs, tables, cfg: StarkConfig,
                 (tree["l_merkle_root"], positions, tree["lincomb"])]))
 
     # K(x) = minipoly(x^skips2) takes only k_period distinct values: the spot
-    # kernel looks it up by pos mod period (main.rs:177-178) in the packed K
-    # table; with runtime constants the minipoly comes from an iNTT instead
-    # and K(x) is evaluated here, one packed row a position
-    k_rows = None
+    # kernel looks it up by pos mod period (main.rs:177-178) in a packed K
+    # table, the statement's or, with runtime constants, this call's
+    spot_tables = _spot_tables(tables, cfg, dev)
     if constants_limbs is not None:
         if constants_limbs.shape != (cfg.num_constants, fp.NLIMBS):
             raise ValueError(
                 f"constants_limbs: shape {tuple(constants_limbs.shape)}, "
                 f"family expects {(cfg.num_constants, fp.NLIMBS)}")
-        with span("verify.kx"):
-            minipoly = ntt.intt(constants_limbs,
-                                tables.minipoly_root)      # [k, 16]
-            g2t = _table(tables, "g2_powers", dev)
-            x_sk2 = g2t[(positions * cfg.skips2) & (cfg.precision - 1)]
-            k_rows = F.limbs_to_words_le(F.eval_poly(minipoly, x_sk2))
+        with span("verify.kx", constants=cfg.num_constants,
+                  k_rows=tables.k_period):
+            spot_tables = spot_tables._replace(
+                k=runtime_k_words(constants_limbs, tables))
 
     # boundary interpolant I(x) coefficients (main.rs:183-187): I(x)
     # interpolates (1, inp), (last, output); host-constant scaffolding, device
@@ -432,8 +441,7 @@ def _verify_mimc(tree, inp, output_limbs, tables, cfg: StarkConfig,
     with span("verify.spot"):
         oks = spot_cuda.spot_checks(
             tree["main"]["value"], tree["lincomb"]["value"], positions, kh,
-            i_c1, i_c0, _spot_tables(tables, cfg, dev), k_rows,
-            power=cfg.power)                               # [..., 80, 3]
+            i_c1, i_c0, spot_tables, power=cfg.power)                               # [..., 80, 3]
         checks.append(oks.flatten(-2).all(dim=-1))
 
         ok = checks[0]
@@ -451,7 +459,7 @@ class _FamilyVerifier(nn.Module):
     g2_words, z_words, z2_words, k_words; level_moduli and points_pts as
     int64), so they are copied to the device once and move with .to(); the
     host constants (quartic_ginv, inv4, last_step_position, k_period,
-    minipoly_root) are plain attributes.
+    k_root, minipoly_root) are plain attributes.
     """
 
     def __init__(self, cfg: StarkConfig, tables: StatementTables,
@@ -479,6 +487,7 @@ class _FamilyVerifier(nn.Module):
         self.inv4 = np.asarray(tables.inv4)
         self.last_step_position = tables.last_step_position
         self.k_period = tables.k_period
+        self.k_root = tables.k_root
         self.minipoly_root = tables.minipoly_root
 
     def _check_device(self, tree) -> None:

@@ -372,10 +372,10 @@ def test_host_fri_rows_rejects_bad_arguments(hostlib, fault):
     assert (ok.view(torch.uint8) == 9).all() and (lhs == 7).all()
 
 
-def _spot_operands(rng, b, g, power, per_position_k=False):
+def _spot_operands(rng, b, g, power, k_rows=8):
     """Kernel D's operands on the CPU for b proofs of g positions: raw words
-    (0xFFFFFFFF and sign-bit words, values >= p), small packed tables, and
-    each family made to hold at one position."""
+    (0xFFFFFFFF and sign-bit words, values >= p), small packed tables (a K
+    table of k_rows rows), and each family made to hold at one position."""
     main = _words(rng, (b, 2 * g, 24))
     lin = _words(rng, (b, g, 8))
     kh = _words(rng, (b, 4, 8))
@@ -384,9 +384,7 @@ def _spot_operands(rng, b, g, power, per_position_k=False):
     ic0 = F.canon(_limbs(list(reversed(_special(rng, b)))))
     tables = spot_cuda.SpotTables(
         *(F.limbs_to_words_le(F.canon(_limbs(_special(rng, rows)))).contiguous()
-          for rows in (32, 32, 32, 8)), log_steps=2)
-    k_rows = (F.limbs_to_words_le(F.canon(_limbs(_special(rng, b * g))))
-              .reshape(b, g, 8).contiguous() if per_position_k else None)
+          for rows in (32, 32, 32, k_rows)), log_steps=2)
     # the plain version's own limbs and gathers, to make each family hold
     mv = main.reshape(b, g, 2, 3, 8)
     p, d, bb = (F.canon(F.words_be_to_limbs(mv[..., 0, j, :]))
@@ -394,8 +392,7 @@ def _spot_operands(rng, b, g, power, per_position_k=False):
     gath = lambda t, i: F.words_le_to_limbs(t[i])          # noqa: E731
     x, xs = gath(tables.g2, pos & 31), gath(tables.g2, (pos << 2) & 31)
     z, z2 = gath(tables.z, pos & 31), gath(tables.z2, pos & 31)
-    k = (F.words_le_to_limbs(k_rows) if per_position_k
-         else gath(tables.k, pos & 7))
+    k = gath(tables.k, pos & (k_rows - 1))
     ks = F.words_be_to_limbs(kh)[:, None]
     p_pow = [(F.sqr_mod(p), p)] if power == 3 else [(p, p)]
     mv[0, 1, 1, 0] = F.limbs_to_words_be(F.mul_sum_mod(
@@ -406,7 +403,7 @@ def _spot_operands(rng, b, g, power, per_position_k=False):
         extra=[d]))[1, 2]
     mv[2, 0, 0, 0] = F.limbs_to_words_be(F.mul_sum_mod(
         [(bb, z2), (ic1[:, None], x)], extra=[ic0[:, None].expand(x.shape)]))[2, 0]
-    return (main, lin, pos, kh, ic1, ic0, tables, k_rows)
+    return (main, lin, pos, kh, ic1, ic0, tables)
 
 
 def _host_spot(hostlib, ops, power):
@@ -431,12 +428,14 @@ def test_host_spot_checks(hostlib, power):
     np.testing.assert_array_equal(got.numpy(), want.numpy())
 
 
-def test_host_spot_boundary_holds(hostlib):
-    """K(x) as one packed row a position (the runtime-statement path), one
-    interpolant row for every proof (stride 0), and a position whose
-    boundary constraint holds, which sets bit 1 only."""
+@pytest.mark.parametrize("k_rows", [8, 64])
+def test_host_spot_boundary_holds(hostlib, k_rows):
+    """A K table with more rows than the positions reach below it (the
+    runtime-statement path's own table), one interpolant row for every
+    proof (stride 0), and a position whose boundary constraint holds, which
+    sets bit 1 only."""
     rng = np.random.RandomState(3)
-    ops = list(_spot_operands(rng, 3, 5, 3, per_position_k=True))
+    ops = list(_spot_operands(rng, 3, 5, 3, k_rows=k_rows))
     want = spot_cuda.spot_checks_plain(*ops, power=3)
     assert want[2, 0].tolist() == [False, True, False]
     assert want[0, 1, 0] and want[1, 2, 2]

@@ -210,13 +210,13 @@ def _be(limbs):
 ROWS, LOG_STEPS, K_ROWS = 64, 3, 16     # small statement tables
 
 
-def _spot_case(rng, lead, n, per_position_k=False):
+def _spot_case(rng, lead, n, k_rows=K_ROWS):
     """Kernel D's operands as the verifier hands them over, made small:
     main value rows [*lead, 2n, 24] and lincomb rows [*lead, n, 8] of raw
     BE words (some 0xFFFFFFFF words, some values >= p), positions, raw
-    k-hash words, canonical interpolant limbs, packed tables (or packed
-    per-position K rows); and, beside them, the limbs and gathers the JAX
-    function takes for the same values."""
+    k-hash words, canonical interpolant limbs, packed tables (a K table of
+    k_rows rows); and, beside them, the limbs and gathers the JAX function
+    takes for the same values."""
     main = _rand_words(rng, lead + (2 * n, 24))
     lin = _rand_words(rng, lead + (n, 8))
     lin.reshape(-1)[::8][1::3] = 0xFFFFFFFF          # values >= p
@@ -226,16 +226,14 @@ def _spot_case(rng, lead, n, per_position_k=False):
     ic0 = _rand_limbs(rng, lead, canonical=True)
     tabs = {name: _rand_limbs(rng, (rows,), canonical=True)
             for name, rows in (("g2", ROWS), ("z", ROWS), ("z2", ROWS),
-                               ("k", K_ROWS))}
+                               ("k", k_rows))}
     mask = ROWS - 1
-    k_rows = _rand_limbs(rng, lead + (n,), canonical=True)
-    k_of_x = k_rows if per_position_k else tabs["k"][pos & (K_ROWS - 1)]
     tab5 = np.stack([tabs["g2"][pos & mask],
                      tabs["g2"][(pos << LOG_STEPS) & mask],
-                     tabs["z"][pos & mask], tabs["z2"][pos & mask], k_of_x],
-                    axis=-2)
+                     tabs["z"][pos & mask], tabs["z2"][pos & mask],
+                     tabs["k"][pos & (k_rows - 1)]], axis=-2)
     words = dict(main=main, lin=lin, pos=pos, kh=kh, ic1=ic1, ic0=ic0,
-                 tabs=tabs, k_rows=k_rows if per_position_k else None)
+                 tabs=tabs)
     return words, tab5
 
 
@@ -255,11 +253,9 @@ def _port_spot(words, power):
     tabs = spot_cuda.SpotTables(
         *(_t(fp.limbs_to_le_words(words["tabs"][k]))
           for k in ("g2", "z", "z2", "k")), log_steps=LOG_STEPS)
-    k_rows = words["k_rows"]
     return spot_cuda.spot_checks(
         _t(words["main"]), _t(words["lin"]), torch.from_numpy(words["pos"]),
         _t(words["kh"]), _t(words["ic1"]), _t(words["ic0"]), tabs,
-        None if k_rows is None else _t(fp.limbs_to_le_words(k_rows)),
         power=power)
 
 
@@ -308,12 +304,14 @@ def test_spot_checks_plain(power):
     assert not want[3:].any()
 
 
+@pytest.mark.parametrize("k_rows", [K_ROWS, 512])
 @pytest.mark.parametrize("power", [3, 2])
-def test_spot_checks_verifier_call_shape(power):
+def test_spot_checks_verifier_call_shape(power, k_rows):
     """[B, n] positions with per-proof k's and interpolant coefficients,
-    and K(x) as one packed row a position (the runtime-statement path)."""
+    and K tables of the statement's size and of a larger one (the
+    runtime-statement path's own table at one constant a round)."""
     rng = np.random.RandomState(5 + power)
-    words, tab5 = _spot_case(rng, (2,), 6, per_position_k=True)
+    words, tab5 = _spot_case(rng, (2,), 6, k_rows=k_rows)
     _make_hold(words, tab5, power, [(1, 3), (0, 5), (1, 0)])
     want = _jax_spot(words, tab5, power)
     got = _port_spot(words, power)
