@@ -2,7 +2,9 @@
 
 The host half of ingestion: a two-pass C scanner (svt_scan sizes a proof's
 groups, svt_fill copies its values, siblings and witnesses into buffers the
-caller allocated).  The library is built by the host C compiler (`$CC`, else
+caller allocated), and a one-pass entry point for a layout the caller
+keeps (svt_pass_many walks each blob once into its slot and refuses what does
+not fit it).  The library is built by the host C compiler (`$CC`, else
 `cc`) at first use, into `build/` beside the package under a name that hashes
 the source and the flags, so a changed source rebuilds and several processes
 can build at once.  A failed build raises with the compiler's output; nothing
@@ -10,9 +12,9 @@ falls back to the Python walker (`proofio.wire.parse_proof`), which stays the
 plain version the tests hold this one against.
 
 ctypes releases the GIL around every call.  The batched entry points
-(svt_scan_many, svt_fill_many, svt_pack_many) take a range of blobs a call,
-so a chunk parses on a few threads that hold the GIL only between ranges
-(proofio/ingest.py, proofio/static_layout.py).
+(svt_scan_many, svt_fill_many, svt_pass_many, svt_pack_many) take a range of
+blobs a call, so a chunk parses on a few threads that hold the GIL only
+between ranges (proofio/ingest.py, proofio/static_layout.py).
 """
 
 from __future__ import annotations
@@ -43,6 +45,8 @@ _ERRORS = {
     3: "bad size field",
     6: "too many FRI levels",
     7: "meta buffer too small",
+    8: "proof does not fit the layout",
+    9: "trailing bytes after proof",
 }
 
 SLOT_ARGS = 25                   # svt_fill's arguments after `len`
@@ -57,6 +61,7 @@ _SIGNATURES = {
                  + [_p] * 10),                   # main + lincomb buffers
     "svt_scan_many": [_p, _p, _i64, _p, _i64, _p],
     "svt_fill_many": [_p, _p, _p, _i64, _p, _p],
+    "svt_pass_many": [_p, _p, _i64, _p, ctypes.c_int32, _p],
     "svt_pack_many": [_p, _p, _i64, _p, _i64],
 }
 
@@ -132,6 +137,7 @@ class Blobs:
 
     def __init__(self, blobs: list):
         blobs = [b if isinstance(b, bytes) else bytes(b) for b in blobs]
+        self.blobs = blobs
         self.n = len(blobs)
         self.ptrs = (ctypes.c_char_p * max(self.n, 1))(*blobs)
         self.lens = np.fromiter((len(b) for b in blobs), dtype=np.uint64,
@@ -141,6 +147,10 @@ class Blobs:
         """(pointer array, lengths) from blob j on."""
         return (ctypes.addressof(self.ptrs) + j * ctypes.sizeof(ctypes.c_char_p),
                 self.lens.ctypes.data + j * 8)
+
+    def take(self, rows) -> "Blobs":
+        """The blobs at `rows`, in order, as a chunk of their own."""
+        return Blobs([self.blobs[j] for j in rows])
 
 
 def _in_ranges(fn, n: int, threads: int) -> None:
@@ -172,15 +182,19 @@ def scan_many(lib, blobs: Blobs, threads: int = 4):
     return metas, rcs
 
 
+def _check_table(table: np.ndarray) -> None:
+    if table.dtype != np.uint64 or table.ndim != 2 \
+            or table.shape[1] != SLOT_ARGS or not table.flags.c_contiguous:
+        raise ValueError("fill table must be dense [slots, 25] uint64")
+
+
 def fill_many(lib, blobs: Blobs, rows: np.ndarray, table: np.ndarray,
               threads: int = 4) -> np.ndarray:
     """svt_fill of blob j into slot j for every j in rows, with the slots'
     arguments from table ([slots, SLOT_ARGS] uint64 addresses, which must
     point into live buffers).  Returns the return codes, one a row."""
     rows = np.ascontiguousarray(rows, dtype=np.int64)
-    if table.dtype != np.uint64 or table.shape[1] != SLOT_ARGS \
-            or not table.flags.c_contiguous:
-        raise ValueError("fill table must be dense [slots, 25] uint64")
+    _check_table(table)
     if rows.size and (rows.min() < 0 or rows.max() >= min(blobs.n,
                                                           table.shape[0])):
         raise IndexError("fill rows out of range")
@@ -192,6 +206,28 @@ def fill_many(lib, blobs: Blobs, rows: np.ndarray, table: np.ndarray,
                           table.ctypes.data, rcs[a:].ctypes.data)
 
     _in_ranges(part, rows.size, threads)
+    return rcs
+
+
+def pass_many(lib, blobs: Blobs, table: np.ndarray, strict: bool,
+              threads: int = 4) -> np.ndarray:
+    """svt_pass_many: blob j in one pass into slot j for every j < n, held
+    to the layout meta of the slots' table (as fill_many's, [>= n,
+    SLOT_ARGS]).  Returns the return codes, one a blob: 0 where the blob is
+    filled exactly as scan + fill would fill it, else the first deviation
+    (the slot then part written)."""
+    _check_table(table)
+    if table.shape[0] < blobs.n:
+        raise IndexError("fill table has fewer slots than blobs")
+    rcs = np.zeros(blobs.n, dtype=np.int32)
+    row = SLOT_ARGS * table.itemsize
+
+    def part(a, b):
+        ptrs, lens = blobs.at(a)
+        lib.svt_pass_many(ptrs, lens, b - a, table.ctypes.data + a * row,
+                          int(strict), rcs[a:].ctypes.data)
+
+    _in_ranges(part, blobs.n, threads)
     return rcs
 
 

@@ -16,8 +16,12 @@
  * sizes (past a short branch the buffer keeps what it held: the caller
  * zeroes it, or the per-branch sizes say which words count).
  *
+ * A third, svt_pass_many, parses blobs in one pass each into the slots of a
+ * layout the caller keeps (see there).
+ *
  * Error codes: 0 ok; 1 truncated; 2 bad tag; 3 bad size field; 6 too many
- * levels; 7 meta buffer too small.  (code 4 "ragged" is retired -- ragged
+ * levels; 7 meta buffer too small; 8 off the layout and 9 trailing bytes
+ * (svt_pass_many only).  (code 4 "ragged" is retired -- ragged
  * groups parse; code 5 "trailing bytes" is retired -- the reference returns
  * a consumed count and ignores trailing garbage, deserializer.rs:142 +
  * main.rs:204, so scan reports consumed in meta and the Python wrapper
@@ -244,6 +248,121 @@ int svt_fill_many(const uint8_t *const *bufs, const uint64_t *lens,
                           (uint8_t *)a[20], (uint8_t *)a[21], (uint8_t *)a[22],
                           (uint32_t *)a[23], (uint32_t *)a[24]);
     }
+    return 0;
+}
+
+/* One pass on a kept layout.  pass_one walks a blob once, as svt_fill
+ * does, into the slot of table row `a` (svt_fill's arguments, as
+ * svt_fill_many reads them), and holds it to the layout's meta a[13] as it
+ * goes: the level count, each group's branch count, each branch's value size
+ * and depth (both before the branch's copy, so nothing lands past the slot's
+ * strides), each group's maxima at its end, the point count, and under
+ * `strict` the consumed count.  It returns 0 exactly where svt_scan would
+ * return 0 with a meta whose prefix (all but the consumed count) equals the
+ * layout's, and consumed == len under strict; the slot then holds what
+ * svt_fill writes there.  Otherwise it stops at the first deviation, with
+ * svt_scan's code for a malformed blob (1, 2, 3), 8 where the blob's shape
+ * is not the layout's, 9 for trailing bytes under strict, and leaves the
+ * slot part written. */
+#define SVT_OFF_LAYOUT 8
+#define SVT_TRAILING 9
+
+/* One group against its layout meta gm = {n, vmax, dmax}. */
+static int pass_group(rdr *r, const int64_t *gm,
+                      uint8_t *values, uint8_t *siblings, uint8_t *wits,
+                      uint32_t *vsizes, uint32_t *depths) {
+    uint32_t n, vm = 0, dm = 0;
+    uint32_t vmax = (uint32_t)gm[1], dmax = (uint32_t)gm[2];
+    if (rd_u32(r, &n)) return 1;
+    if (n == 0 || n > (1u << 20)) return 3;
+    if ((int64_t)n != gm[0]) return SVT_OFF_LAYOUT;
+    for (uint32_t i = 0; i < n; i++) {
+        uint32_t vsize, wsize;
+        const uint8_t *v, *s, *w;
+        if (rd_u32(r, &vsize)) return 1;
+        if (vsize == 0 || vsize % 32 || vsize > (1u << 16)) return 3;
+        if (vsize > vmax) return SVT_OFF_LAYOUT;
+        if (vsize > vm) vm = vsize;
+        if (rd_bytes(r, vsize, &v)) return 1;
+        if (rd_bytes(r, vsize, &s)) return 1;
+        if (rd_u32(r, &wsize)) return 1;
+        if (wsize % 32) return 3;
+        uint32_t depth = wsize / 32;
+        if (depth > 64) return 3;
+        if (depth > dmax) return SVT_OFF_LAYOUT;
+        if (depth > dm) dm = depth;
+        if (rd_bytes(r, wsize, &w)) return 1;
+        memcpy(values + (size_t)i * vmax, v, vsize);
+        memcpy(siblings + (size_t)i * vmax, s, vsize);
+        memcpy(wits + (size_t)i * dmax * 32, w, (size_t)depth * 32);
+        vsizes[i] = vsize;
+        depths[i] = depth;
+    }
+    if (vm != vmax || dm != dmax) return SVT_OFF_LAYOUT;
+    return 0;
+}
+
+/* Level lvl's pointer from the per-level table a[k]. */
+static void *lv(void *const *a, int k, int64_t lvl) {
+    return ((void *const *)a[k])[lvl];
+}
+
+static int pass_one(const uint8_t *buf, size_t len, void *const *a,
+                    int32_t strict) {
+    rdr r = {buf, 0, len};
+    const uint8_t *tmp;
+    const int64_t *meta = (const int64_t *)a[13];
+    int64_t n_levels = meta[0], lvl = 0;
+    int rc;
+    if (rd_bytes(&r, 32, &tmp)) return 1;
+    memcpy(a[0], tmp, 32);
+    if (rd_bytes(&r, 32, &tmp)) return 1;
+    memcpy(a[1], tmp, 32);
+    for (;;) {
+        uint32_t tag;
+        if (rd_u32(&r, &tag)) return 1;
+        if (tag == 1) {
+            if (lvl >= n_levels) return SVT_OFF_LAYOUT;
+            if (rd_bytes(&r, 32, &tmp)) return 1;
+            memcpy(lv(a, 2, lvl), tmp, 32);
+            const int64_t *lm = meta + 2 + 6 * lvl;
+            rc = pass_group(&r, lm, lv(a, 3, lvl), lv(a, 4, lvl),
+                            lv(a, 5, lvl), lv(a, 6, lvl), lv(a, 7, lvl));
+            if (rc) return rc;
+            rc = pass_group(&r, lm + 3, lv(a, 8, lvl), lv(a, 9, lvl),
+                            lv(a, 10, lvl), lv(a, 11, lvl), lv(a, 12, lvl));
+            if (rc) return rc;
+            lvl++;
+        } else if (tag == 2) {
+            uint32_t psize;
+            if (lvl != n_levels) return SVT_OFF_LAYOUT;
+            if (rd_u32(&r, &psize)) return 1;
+            if (psize == 0 || psize % 32) return 3;
+            if ((int64_t)psize != 32 * meta[1]) return SVT_OFF_LAYOUT;
+            if (rd_bytes(&r, psize, &tmp)) return 1;
+            memcpy(a[14], tmp, psize);
+            break;
+        } else {
+            return 2;
+        }
+    }
+    const int64_t *tm = meta + 2 + 6 * n_levels;
+    rc = pass_group(&r, tm, a[15], a[16], a[17], a[18], a[19]);
+    if (rc) return rc;
+    rc = pass_group(&r, tm + 3, a[20], a[21], a[22], a[23], a[24]);
+    if (rc) return rc;
+    if (strict && r.off != len) return SVT_TRAILING;
+    return 0;
+}
+
+/* svt_pass_many: rcs[j] = pass_one(bufs[j], lens[j], table row j, strict)
+ * for j < n: blob j into slot j. */
+int svt_pass_many(const uint8_t *const *bufs, const uint64_t *lens,
+                  int64_t n, void *const *table, int32_t strict,
+                  int32_t *rcs) {
+    for (int64_t j = 0; j < n; j++)
+        rcs[j] = pass_one(bufs[j], (size_t)lens[j],
+                          table + (size_t)j * SVT_SLOT_ARGS, strict);
     return 0;
 }
 

@@ -14,10 +14,14 @@ convention, proofio/device.py); when the batch is bound for the card they are
 pinned, so that its host-to-device copy can run asynchronously.  Every host
 check reads them through uint32 numpy views of the same memory.
 
-The chunk is scanned and filled by the batched entry points
-(native.scan_many / fill_many): a few calls a chunk, each over a range of
-blobs on its own thread, with the GIL released for the whole range; the
-family and layout checks run vectorized over the scan metadata.  Only the
+On a layout the caller keeps, each blob is parsed in one pass straight into
+its slot (native.pass_many): the pass holds the blob to the layout's shape as
+it walks, and fills it exactly as a scan and a fill would.  Only the blobs it
+refuses, and every blob of a chunk with no kept layout (a stream slot's or a
+batch caller's first), are scanned and filled by the two-pass route
+(native.scan_many / fill_many), with the family and layout checks vectorized
+over the scan metadata.  Each is a few calls a chunk, each over a range of
+blobs on its own thread, with the GIL released for the whole range.  Only the
 rare structural outliers take the per-proof parse, on the same threads.
 """
 
@@ -211,6 +215,14 @@ class BatchLayout:
         from .. import native
         return native.fill_many(lib, blobs, rows, self._fill_table, threads)
 
+    def one_pass(self, lib, blobs, strict: bool, threads: int) -> np.ndarray:
+        """Blob j in one pass into slot j for every blob; returns the return
+        codes, 0 exactly where the blob's scan metadata would pass
+        compatible_rows (and, under strict, has no trailing bytes), its slot
+        then filled as fill() would fill it."""
+        from .. import native
+        return native.pass_many(lib, blobs, self._fill_table, strict, threads)
+
     def copy_slot_from_tree(self, src: dict, i: int) -> None:
         """Slow path: copy a per-proof numpy tree into batch slot i.  Smaller
         witness dims zero-pad into the slot; a tree DEEPER than the layout
@@ -256,7 +268,8 @@ def ingest_chunk(blobs: list, cfg, layout: BatchLayout | None = None,
     callers mask by `ok`, length len(blobs)), ok a bool array, and the
     reusable BatchLayout (None tree when no blob is valid).  pin=True
     allocates a new layout in pinned memory.  Thread-parallel native
-    scan + fill; per-blob failures reject without aborting.
+    parse: one pass a blob on a kept layout, scan + fill for the rest;
+    per-blob failures reject without aborting.
 
     Per-proof verdict independence: the layout is only ever built from a
     meta passing _family_rows, a passed-in layout that is too small or
@@ -269,18 +282,19 @@ def ingest_chunk(blobs: list, cfg, layout: BatchLayout | None = None,
         tree, ok, layout, seen = _ingest(blobs, cfg, layout, threads, pad_to,
                                          pin)
         if sp:
-            rcs, fam, filled, slow, how = seen
+            rcs, fam, filled, passed, slow, how = seen
             sp.set(scan_rejected=int((rcs != 0).sum()),
                    family_rejected=int(((rcs == 0) & ~fam).sum()),
-                   native_filled=int(filled.sum()), slow=slow,
-                   ok=int(ok.sum()), layout=how)
+                   native_filled=int(filled.sum()), one_pass=passed,
+                   slow=slow, ok=int(ok.sum()), layout=how)
     return tree, ok, layout
 
 
 def _ingest(blobs: list, cfg, layout, threads: int, pad_to, pin: bool):
     """ingest_chunk's work: (tree, ok, layout, what the parse span counts:
-    (scan return codes, family rows, natively filled rows, slow-path blobs,
-    what became of the layout: kept, built, rebuilt, expanded or none))."""
+    (scan return codes, family rows, natively filled rows, how many of them
+    the one pass filled, slow-path blobs, what became of the layout: kept,
+    built, rebuilt, expanded or none))."""
     from .. import native
     lib = native.get_lib()
 
@@ -288,38 +302,55 @@ def _ingest(blobs: list, cfg, layout, threads: int, pad_to, pin: bool):
     alloc = max(pad_to or B, B)
     ok = np.zeros(B, dtype=bool)
     filled = np.zeros(B, dtype=bool)
-    with span("parse.scan"):
-        chunk = native.Blobs(blobs)
-        metas, rcs = native.scan_many(lib, chunk, threads)
-        fam = (rcs == 0) & _family_rows(metas, cfg)
+    chunk = native.Blobs(blobs)
 
     given = layout is not None
     if layout is not None and (layout.batch < alloc
                                or not layout.family_ok(cfg)):
         layout = None
-    if layout is not None and fam.any() and not (
+    if layout is not None:
+        # a kept layout: one pass a blob, straight into its slot.  A blob it
+        # fills is of the family and compatible with the layout, as a scan
+        # would have found; only the blobs it refuses are scanned below
+        with span("parse.pass"):
+            filled = layout.one_pass(lib, chunk, cfg.strict, threads) == 0
+    passed = int(filled.sum())
+    rest = np.flatnonzero(~filled)         # scanned: metas' rows are these
+    rcs = np.zeros(B, dtype=np.int32)
+    fam = filled.copy()
+    if rest.size:
+        with span("parse.scan"):
+            metas, rcs[rest] = native.scan_many(
+                lib, chunk if rest.size == B else chunk.take(rest), threads)
+            fam[rest] = (rcs[rest] == 0) & _family_rows(metas, cfg)
+
+    if layout is not None and not passed and fam.any() and not (
             layout.compatible_rows(metas) & fam).any():
         # stale layout (expanded for a one-off adversarial blob, or the
         # prover's witness padding changed): no blob here native-fills it,
-        # so rebuild rather than slow-path whole chunks forever
+        # so rebuild rather than slow-path whole chunks forever.  (With
+        # none passed, every blob was scanned.)
         layout = None
     how = "kept" if layout is not None else "rebuilt" if given else "built"
     if layout is None:
         if not fam.any():
             # nothing in this chunk matches the family: every blob rejects
-            return None, ok, layout, (rcs, fam, filled, 0, "none")
+            return None, ok, layout, (rcs, fam, filled, 0, 0, "none")
         with span("parse.layout"):
             layout = BatchLayout(metas[int(np.flatnonzero(fam)[0])], alloc,
                                  pin=pin)
 
-    native_rows = fam & layout.compatible_rows(metas)
-    if cfg.strict:
-        # trailing bytes: the host parse below arbitrates (and rejects)
-        native_rows &= (metas[:, 2 + 6 * cfg.fri_levels + 6]
-                        == chunk.lens.astype(np.int64))
-    rows = np.flatnonzero(native_rows)
-    with span("parse.fill"):
-        filled[rows[layout.fill(lib, chunk, rows, threads) == 0]] = True
+    if rest.size:
+        native_rows = fam[rest] & layout.compatible_rows(metas)
+        if cfg.strict:
+            # trailing bytes: the host parse below arbitrates (and rejects)
+            native_rows &= (metas[:, 2 + 6 * cfg.fri_levels + 6]
+                            == chunk.lens[rest].astype(np.int64))
+        rows = rest[native_rows]
+        if rows.size:
+            with span("parse.fill"):
+                filled[rows[layout.fill(lib, chunk, rows, threads) == 0]] = \
+                    True
     # a scan/fill divergence never aborts the chunk: such a blob takes the
     # per-proof host parse with the structural outliers (ragged groups,
     # other witness padding), which decides its verdict
@@ -358,7 +389,7 @@ def _ingest(blobs: list, cfg, layout, threads: int, pad_to, pin: bool):
             layout.copy_slot_from_tree(t, j)
             ok[j] = True
 
-    seen = (rcs, fam, filled, int(slow.size), how)
+    seen = (rcs, fam, filled, passed, int(slow.size), how)
     if not ok.any():
         return None, ok, layout, seen
     # failed and pad slots get the first valid proof, so that the whole

@@ -220,16 +220,196 @@ def test_ingest_chunk_equals_jax(pb, pb7, case):
         layout, jlayout = layout2, jlayout2
 
 
-def test_ingest_chunk_equals_its_plain_version(pb):
-    blobs = [pb, _flip(pb, 3000), pb[:77], pb + b"x", pb]
-    tree, ok, _ = ingest.ingest_chunk(blobs, CFG, pad_to=6)
-    plain, pok = ingest.ingest_chunk_plain(blobs, CFG, pad_to=6)
-    assert ok.tolist() == pok.tolist() == [True, True, False, True, True]
-    device.tree_map(lambda a, b: None, tree, plain)
-    device.tree_map(lambda a, b: np.testing.assert_array_equal(
-        a.numpy(), b.numpy()), tree, plain)
+def _u32(blob, at):
+    return int.from_bytes(blob[at:at + 4], "little")
+
+
+GROUPS = ("column", "poly", "main", "lincomb")
+
+
+def _groups(blob):
+    """{kind: (start, branch starts, end)} of the first column and poly
+    groups and of the main and lincomb groups, "levels": [(start, end)] of
+    each FRI level and "points": (start, end) of the POINTS element, as the
+    wire lays them out."""
+    at, out = 64, {"levels": []}
+
+    def group(kind):
+        nonlocal at
+        start, branches = at, []
+        at += 4
+        for _ in range(_u32(blob, start)):
+            branches.append(at)
+            at += 4 + 2 * _u32(blob, at)
+            at += 4 + _u32(blob, at)
+        out.setdefault(kind, (start, branches, at))
+
+    while _u32(blob, at) == 1:
+        start = at
+        at += 4 + 32
+        group("column")
+        group("poly")
+        out["levels"].append((start, at))
+    out["points"] = (at, at + 8 + _u32(blob, at + 4))
+    at = out["points"][1]
+    group("main")
+    group("lincomb")
+    return out
+
+
+def _reshape(blob, kind, i, wider=False, dd=0):
+    """Branch i of a group with a value 32 bytes wider, or dd witnesses
+    more (fewer when negative)."""
+    b = _groups(blob)[kind][1][i]
+    vs = _u32(blob, b)
+    w = b + 4 + 2 * vs
+    ws = _u32(blob, w)
+    if wider:
+        pad = b"\x00" * 32
+        return (blob[:b] + struct.pack("<I", vs + 32) + blob[b + 4:b + 4 + vs]
+                + pad + blob[b + 4 + vs:w] + pad + blob[w:])
+    wit = blob[w + 4:w + 4 + ws]
+    wit = wit + wit[-32:] * dd if dd > 0 else wit[:32 * dd or None]
+    return blob[:w] + struct.pack("<I", ws + 32 * dd) + wit + blob[w + 4 + ws:]
+
+
+def _extra_branch(blob, kind):
+    """A group with its first branch repeated at its end."""
+    start, branches, end = _groups(blob)[kind]
+    first = blob[branches[0]:branches[1]]
+    return (blob[:start] + struct.pack("<I", len(branches) + 1)
+            + blob[start + 4:end] + first + blob[end:])
+
+
+def _plain_chunk(pb, pb7):
+    """{name: blob}: every CASES blob, a flipped bit, the blobs whose shape
+    leaves a kept layout's (one branch more, a wider value, a deeper or a
+    shallower witness, a level fewer or more, a point more), a truncation
+    inside each group kind and a trailing byte."""
+    g = _groups(pb)
+    (s, e), (ps, pe) = g["levels"][-1], g["points"]
+    return {**{k: f(pb, pb7) for k, f in CASES.items()},
+            "flip": _flip(pb, 3000),
+            "extra_branch": _extra_branch(pb, "main"),
+            "wider": _reshape(pb, "lincomb", -1, wider=True),
+            "deeper": _reshape(pb, "lincomb", -1, dd=1),
+            "ragged_column": _reshape(pb, "column", 3, dd=-1),
+            "fewer_levels": pb[:s] + pb[e:],
+            "more_levels": pb[:e] + pb[s:],
+            "more_points": (pb[:ps + 4] + struct.pack("<I", pe - ps + 24)
+                            + pb[ps + 8:pe] + b"\x00" * 32 + pb[pe:]),
+            **{f"cut_{k}": pb[:(g[k][0] + g[k][2]) // 2] for k in GROUPS},
+            "trailing_byte": pb + b"x"}
+
+
+# the blobs that parse into the family; under strict also without the two
+# that carry trailing bytes
+PLAIN_OK = {"golden", "trailing", "ragged", "flip", "deeper",
+            "ragged_column", "trailing_byte"}
+# the one pass's return code of each blob on a layout kept from golden ones
+PASS_RC = {"golden": 0, "truncated_head": 1, "truncated_mid": 1,
+           "truncated_tail": 1, "trailing": 0, "wrong_tag": 2,
+           "bad_size_field": 3, "zero_fri_levels": 8, "empty": 1,
+           "other_family": 8, "ragged": 0, "flip": 0, "extra_branch": 8,
+           "wider": 8, "deeper": 8, "ragged_column": 0, "fewer_levels": 8,
+           "more_levels": 8, "more_points": 8, "cut_column": 1, "cut_poly": 1,
+           "cut_main": 1, "cut_lincomb": 1, "trailing_byte": 0}
+
+
+def _past_depth_zeroed(tree):
+    """The tree with every witness row at or past its branch's depth zeroed:
+    rows no walk reads, where a kept layout leaves what the slot held."""
+    def zero(w, d):
+        return w.masked_fill((torch.arange(w.shape[2]) >= d[..., None])
+                             [..., None], 0)
+
+    fri, out = tree["fri"], dict(tree)
+    out["fri"] = dict(fri)
+    for k in ("col", "poly"):
+        out["fri"][f"{k}_witness"] = [
+            zero(w, fri[f"{k}_depth"][:, l])
+            for l, w in enumerate(fri[f"{k}_witness"])]
+    for k in ("main", "lincomb"):
+        out[k] = dict(tree[k], witness=zero(tree[k]["witness"],
+                                            tree[k]["depth"]))
+    return out
+
+
+def _assert_same_tree(a, b):
+    device.tree_map(lambda x, y: None, a, b)
+    device.tree_map(lambda x, y: np.testing.assert_array_equal(
+        x.numpy(), y.numpy()), a, b)
+
+
+@pytest.mark.parametrize("strict", [False, True])
+@pytest.mark.parametrize("layout", ["built", "kept"])
+def test_ingest_chunk_equals_its_plain_version(pb, pb7, layout, strict,
+                                               monkeypatch):
+    """On a built layout (the two-pass route) and on a kept one (the one
+    pass, and the two-pass route for what it refuses) ingest_chunk gives
+    ingest_chunk_plain's verdicts and tree; on the kept layout also the
+    two-pass route's tree, byte for byte."""
+    cfg = StarkConfig(log_steps=9, strict=strict)
+    named = _plain_chunk(pb, pb7)
+    blobs = list(named.values())
+    want = [k in PLAIN_OK and not (strict and k.startswith("trailing"))
+            for k in named]
+    plain, pok = ingest.ingest_chunk_plain(blobs, cfg, pad_to=len(blobs) + 1)
+    assert pok.tolist() == want
     none, nok = ingest.ingest_chunk_plain([b"", pb[:9]], CFG)
     assert none is None and nok.tolist() == [False, False]
+    if layout == "built":
+        tree, ok, _ = ingest.ingest_chunk(blobs, cfg, pad_to=len(blobs) + 1)
+        assert ok.tolist() == want
+        _assert_same_tree(tree, plain)
+        return
+    trees, rcs = [], []
+    for route in ("one pass", "two-pass"):
+        _t, _ok, kept = ingest.ingest_chunk([pb] * len(blobs), cfg,
+                                            pad_to=len(blobs) + 1)
+        if route == "one pass":
+            real = kept.one_pass
+            monkeypatch.setattr(kept, "one_pass", lambda *a: rcs.append(
+                real(*a)) or rcs[-1])
+        else:                   # the pass refuses every blob
+            monkeypatch.setattr(kept, "one_pass", lambda lib, chunk, *a:
+                                np.full(chunk.n, 8, np.int32))
+        tree, ok, layout2 = ingest.ingest_chunk(blobs, cfg, kept,
+                                                pad_to=len(blobs) + 1)
+        assert ok.tolist() == want
+        assert layout2 is not kept      # the deeper blob expanded it
+        trees.append(tree)
+    assert dict(zip(named, rcs[0].tolist())) == {
+        k: 9 if strict and k.startswith("trailing") else rc
+        for k, rc in PASS_RC.items()}
+    _assert_same_tree(*trees)
+    _assert_same_tree(_past_depth_zeroed(trees[0]), _past_depth_zeroed(plain))
+
+
+@pytest.mark.parametrize("case", ["extra_branch", "wider", "deeper",
+                                  "more_levels"])
+def test_a_refused_blob_writes_only_its_own_slot(pb, pb7, case):
+    """A blob the one pass stops in mid-copy leaves its neighbours' slots
+    (and their per-branch sizes) byte for byte as they were."""
+    head, cfg = (pb7, StarkConfig(log_steps=7)) if case == "more_levels" \
+        else (pb, CFG)
+    _t, ok, layout = ingest.ingest_chunk([head] * 3, cfg)
+    bad = {"extra_branch": _extra_branch(pb, "lincomb"),
+           "wider": _reshape(pb, "lincomb", -1, wider=True),
+           "deeper": _reshape(pb, "lincomb", -1, dd=1),
+           "more_levels": pb}[case]
+    slots = []
+    device.tree_map(slots.append, layout.tree)
+    slots += layout._vs_col + layout._vs_poly + [layout._vs_main,
+                                                 layout._vs_lin]
+    for a in slots:
+        a[...] = 0x5A5A5A5A
+    rcs = layout.one_pass(native.get_lib(), native.Blobs([b"", bad, b""]),
+                          strict=False, threads=1)
+    assert rcs.tolist() == [1, 8, 1]
+    assert all((a[0] == 0x5A5A5A5A).all() and (a[2] == 0x5A5A5A5A).all()
+               for a in slots)
+    assert any((a[1] != 0x5A5A5A5A).any() for a in slots)
 
 
 def test_validate_filled_reads_depths_as_uint32(pb):

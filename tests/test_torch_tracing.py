@@ -124,6 +124,8 @@ def test_stream_spans_nest_by_layer_and_name_their_chunk(traced):
         steps = {k.name for k in _children(spans, parse)}
         if p.attrs["chunk"] == 1:      # nothing in it is of the family
             assert steps == {"parse.scan"}
+        elif p.attrs["chunk"] == 2:    # slot 0's layout, kept: one pass
+            assert steps == {"parse.pass", "parse.validate", "parse.pad"}
         else:
             assert steps >= {"parse.scan", "parse.fill", "parse.validate",
                              "parse.pad"}
@@ -166,17 +168,19 @@ def test_parse_counts_equal_the_verdicts(traced):
     assert len(parse) == 1
     a = parse[0].attrs
     assert a == {"proofs": 4, "scan_rejected": 2, "family_rejected": 0,
-                 "native_filled": 2, "slow": 0, "ok": int(ok.sum()),
-                 "layout": "built"}
+                 "native_filled": 2, "one_pass": 0, "slow": 0,
+                 "ok": int(ok.sum()), "layout": "built"}
     assert {k.name for k in _children(traced["spans"], parse[0])} == {
         "parse.scan", "parse.layout", "parse.fill", "parse.validate",
         "parse.pad"}
-    # the stream's chunks: a slot builds its layout once, and keeps it
+    # the stream's chunks: a slot builds its layout once, and keeps it; on
+    # the kept layout the one pass fills every blob it fills
     in_stream = [s.attrs for s in _named(traced["spans"], "parse")
                  if s is not parse[0]]
-    assert [(a["proofs"], a["scan_rejected"], a["ok"], a["layout"])
-            for a in in_stream] == [(2, 1, 1, "built"), (2, 2, 0, "none"),
-                                    (1, 0, 1, "kept")]
+    assert [(a["proofs"], a["scan_rejected"], a["ok"], a["layout"],
+             a["one_pass"], a["native_filled"]) for a in in_stream] == [
+        (2, 1, 1, "built", 0, 1), (2, 2, 0, "none", 0, 0),
+        (1, 0, 1, "kept", 1, 1)]
 
 
 def test_a_verifier_built_on_a_miss_opens_its_span(traced):
