@@ -77,14 +77,10 @@ the CPU):
                  parse (the native parser built by cc, pinned batches) and
                  with the device parse: verdicts exact in both, and each
                  chunk's launches those of the walk its tree selects (and of
-                 its rerouted rows).  Then the host's share (native parse ms
-                 a proof on 1 and 4 threads, packing, H2D GB/s from pinned
-                 memory), a golden stream of 4,096 against the
-                 device-resident rate at 512 (the overlap of parse and
-                 launches; the worker thread against the prepare stage run
-                 inline, in turns), and the CLI (`verify` exits 0 / 1 / 2, `bench --batch 1024`) and
-                 the bench (`8192 5`, `--stream 4096 512`, with and without
-                 `--device-parse`) as subprocesses, their JSON lines parsed;
+                 its rerouted rows).  Then packing ms a proof and H2D GB/s
+                 from pinned and pageable memory, and the CLI (`verify`
+                 exits 0 / 1 / 2, `bench --batch 1024`) as subprocesses,
+                 their JSON lines parsed;
  10. ranks    -- one process a rank (parallel/mesh.launch; each rank runs
                  steps of parallel/rank_checks and counts its own launches):
                  torch.cuda.device_count() ranks over NCCL verify the
@@ -103,17 +99,15 @@ the CPU):
                  forward and inverse, each rank's slice and the gathered
                  result equal to the one-process ntt;
  11. times    -- proofs/s at batch 1,024 (shared, unshared, runtime
-                 statement) and 8,192, single-proof latency; last, the
-                 device's busy share during a stream of 2,048 golden blobs
-                 in each parse mode, under torch.profiler;
+                 statement) and 8,192, single-proof latency;
  12. NTT, MiMC scan, debug (run after phase 10, before the times of phase
-                 11, whose profiler passes come last) -- ops/ntt.ntt at 2^20
+                 11) -- ops/ntt.ntt at 2^20
                  (2 launches of the several-stage kernel, no other), its
                  round trip and one point against a Horner evaluation on the
                  host, 2^13 against the oracle's FFT, a transform of one
                  stage-kernel launch a stage against the several-stage one
-                 at 2^20, 2^16 and 2^13 (equal, then timed in turns),
-                 `bench --ntt 13 20` as a subprocess; the MiMC scan through
+                 at 2^20, 2^16 and 2^13 (equal, then timed in turns); the
+                 MiMC scan through
                  MimcStatement.compute_output (the known output of input 3),
                  16 inputs against the oracle at 8,192 steps with the
                  default 64 constants and with 8,192 (more than shared
@@ -141,7 +135,6 @@ just after.  The last line printed is {"ok": true, "device": {...}}; the line
 before it holds one JSON record per kernel.
 """
 
-import concurrent.futures
 import json
 import os
 import random
@@ -1930,32 +1923,6 @@ def moved_bytes(tree):
     return total[0]
 
 
-real_pool = M.ThreadPoolExecutor
-
-
-class InlineExecutor:
-    """Runs each submitted call at once, on the caller's thread: with it in
-    place of verify_stream's worker, a chunk is prepared on the main thread
-    before the previous one is dispatched (the pipeline without overlap)."""
-
-    def __init__(self, max_workers=None):
-        pass
-
-    def __enter__(self):
-        return self
-
-    def __exit__(self, *exc):
-        return False
-
-    def submit(self, fn, *args):
-        fut = concurrent.futures.Future()
-        try:
-            fut.set_result(fn(*args))
-        except Exception as e:       # handed to the caller, as a pool would
-            fut.set_exception(e)
-        return fut
-
-
 def flip_bit(blob, word):
     b = bytearray(blob)
     b[4 * word + 1] ^= 1
@@ -2084,23 +2051,6 @@ def check_stream_launches(mode, kinds, names, device_parse, snaps, final):
     return exp
 
 
-def ingest_ms(cfg, blobs, threads, reps=3):
-    """Median ms of ingest_chunk over `blobs` into a reused pinned layout."""
-    _t, ok, lay = ingest.ingest_chunk(blobs, cfg, None, threads=threads,
-                                      pin=True)
-    if not ok.all():
-        fail("ingest rejected a copy of the golden proof")
-    ts = []
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        _t, ok, lay2 = ingest.ingest_chunk(blobs, cfg, lay, threads=threads,
-                                           pin=True)
-        ts.append(time.perf_counter() - t0)
-        if lay2 is not lay or not ok.all():
-            fail("ingest did not reuse its layout for the same blobs")
-    return statistics.median(ts) * 1e3, lay
-
-
 def h2d_gbps(host, reps=5):
     """GB/s of one asynchronous copy of the host tree (pinned) to the card
     on a side stream, by CUDA events."""
@@ -2120,27 +2070,6 @@ def h2d_gbps(host, reps=5):
         end.synchronize()
         rates.append(moved / (start.elapsed_time(end) * 1e-3) / 1e9)
     return statistics.median(rates), moved
-
-
-def busy_share(call):
-    """(wall s, device-busy ms, device kernels) of one call under
-    torch.profiler; None where it records no device time."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        call()
-        torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    rows = [(getattr(e, "device_time_total", 0.0) or 0.0, e.count)
-            for e in prof.key_averages()
-            if getattr(e, "device_type", None) is not None
-            and "cuda" in str(e.device_type).lower()]
-    busy_us = sum(r[0] for r in rows)
-    if busy_us <= 0:
-        return None
-    return wall, busy_us / 1e3, sum(r[1] for r in rows)
 
 
 def run_json(args, what, expect_rc=0, timeout=400):
@@ -2164,8 +2093,8 @@ def run_json(args, what, expect_rc=0, timeout=400):
 
 def stream_phase(cfg, blob, tree_np, consts, out):
     """Phase 9: the stream of distinct blobs in both parse modes, the CLI
-    and the bench as a user runs them, and the numbers of the path from
-    bytes.  Returns the stream's kinds and its names, for phase 10."""
+    as a user runs it, and the host's numbers no benchmark cell reads.
+    Returns the stream's kinds and its names, for phase 10."""
     nums = {"card": nvidia_smi_line()}
     nums["parser_build_s"] = native.build_seconds()
     t0 = time.perf_counter()
@@ -2204,18 +2133,14 @@ def stream_phase(cfg, blob, tree_np, consts, out):
             STREAM_BLOBS / secs
     if results["host parse"] != results["device parse"]:
         fail("the two parse modes disagree")
+    del blobs
 
-    # the host's share: native parse, packing, copies from pinned memory
+    # the host's share the benchmark does not read: packing, copies from
+    # pinned memory
     gold = [bytes(bytearray(blob)) for _ in range(CHUNK)]
-    for threads in (1, 4):
-        ms, lay = ingest_ms(cfg, gold, threads)
-        nums[f"ingest_ms_per_proof_{threads}_threads"] = ms / CHUNK
-    ts = []
-    for _ in range(20):
-        t0 = time.perf_counter()
-        wire.parse_proof_fast(blob)
-        ts.append(time.perf_counter() - t0)
-    nums["parse_proof_fast_ms"] = statistics.median(ts) * 1e3
+    _t, ok, lay = ingest.ingest_chunk(gold, cfg, None, pin=True)
+    if not ok.all():
+        fail("ingest rejected a copy of the golden proof")
     slay = SL.canonical_layout(cfg)
     pack = torch.zeros((CHUNK, slay.words), dtype=torch.int32,
                        pin_memory=True)
@@ -2240,82 +2165,7 @@ def stream_phase(cfg, blob, tree_np, consts, out):
         moved_bytes(lay.tensors) / (time.perf_counter() - t0) / 1e9)
     del pageable
 
-    # golden stream against the device-resident rate at the chunk's batch,
-    # in turns with its parts alone: the host's (ingest or pack of the 4,096
-    # blobs, chunk by chunk) and the card's (8 verify calls of 512 resident
-    # proofs).  overlap = how much of the shorter part the stream hid behind
-    # the longer: 1 if the stream took as long as the longer part alone, 0
-    # if as long as both, below 0 if longer still
-    fn512, _ = V.make_verifier(cfg, 3, device=DEV)
-    res512 = device_batch(tree_np, CHUNK, tamper=False)
-    golden = [bytes(bytearray(blob)) for _ in range(STREAM_BLOBS)]
-    parts = [golden[k:k + CHUNK] for k in range(0, STREAM_BLOBS, CHUNK)]
-    held = {"layout": None}
-
-    def ingest_alone():
-        for part in parts:
-            _t, ok, held["layout"] = ingest.ingest_chunk(
-                part, cfg, held["layout"], pin=True)
-            if not ok.all():
-                fail("ingest rejected a copy of the golden proof")
-
-    def pack_alone():
-        for part in parts:
-            slay.pack(part, out=pack)
-
-    def verify_alone():
-        for _ in parts:
-            if not bool(fn512(res512).all()):
-                fail("a resident call rejected the golden proof")
-
-    def stream(dp):
-        got = list(M.verify_stream(golden, chunk=CHUNK, cfg=cfg,
-                                   device_parse=dp, device=DEV))
-        if len(got) != STREAM_BLOBS or not all(v for _, v in got):
-            fail(f"golden stream (device_parse={dp}) rejected a proof")
-
-    def seconds(call):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        call()
-        torch.cuda.synchronize()
-        return time.perf_counter() - t0
-
-    runs = {"ingest": ingest_alone, "pack": pack_alone,
-            "verify": verify_alone, "host": lambda: stream(False),
-            "device": lambda: stream(True)}
-    for call in runs.values():
-        call()                                             # warm
-    took = {k: [] for k in runs}
-    for _ in range(2):
-        for k, call in runs.items():
-            took[k].append(seconds(call))
-    t = {k: statistics.median(v) for k, v in took.items()}
-    nums["resident_batch_512_proofs_per_s"] = STREAM_BLOBS / t["verify"]
-    for mode, host in (("host", "ingest"), ("device", "pack")):
-        nums[f"golden_stream_{mode}_parse_proofs_per_s"] = (
-            STREAM_BLOBS / t[mode])
-        nums[f"golden_stream_{mode}_parse_wire_MBps"] = (
-            len(blob) * STREAM_BLOBS / t[mode] / 1e6)
-        nums[f"stream_{mode}_parse_overlap"] = {
-            f"{host}_alone_s": took[host], "verify_alone_s": took["verify"],
-            "stream_s": took[mode],
-            "share": (t[host] + t["verify"] - t[mode])
-            / min(t[host], t["verify"])}
-    # the worker thread against the same pipeline with its prepare stage run
-    # inline on the main thread, in turns
-    for mode, dp in (("host", False), ("device", True)):
-        rates = []
-        for inline in (False, True, True, False):
-            M.ThreadPoolExecutor = InlineExecutor if inline else real_pool
-            try:
-                rates.append(["inline" if inline else "worker",
-                              STREAM_BLOBS / seconds(lambda: stream(dp))])
-            finally:
-                M.ThreadPoolExecutor = real_pool
-        nums[f"stream_{mode}_parse_worker_vs_inline"] = rates
-    del golden, blobs, parts, res512, held
-    # the CLI and the bench, as a user runs them
+    # the CLI, as a user runs it
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         files = {"golden": blob, "flipped": flip_bit(blob, 3),
@@ -2330,50 +2180,11 @@ def stream_phase(cfg, blob, tree_np, consts, out):
         rec, _ = run_json([cli, "bench", path["golden"], "--batch", "1024",
                            "--iters", "5"], "cli bench --batch 1024")
         nums["cli_bench_1024_proofs_per_s"] = rec["proofs_per_s"]
-        bench = "stark_verifier_tpu_torch.bench"
-        rec, _ = run_json([bench, path["golden"], "8192", "5"],
-                          "bench 8192 5")
-        nums["bench_8192"] = rec
-        for extra in ([], ["--device-parse"]):
-            rec, _ = run_json([bench, path["golden"], "--stream", "4096",
-                               str(CHUNK), *extra],
-                              f"bench --stream 4096 {CHUNK} {' '.join(extra)}")
-            nums[f"bench_stream{'_device_parse' if extra else ''}"] = rec
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for key, value in nums.items():
         log(f"bytes-to-verdicts {key}: {json.dumps(value)}")
     return kinds, names
-
-
-def stream_busy(cfg, blob):
-    """The device's busy share during a stream of 2,048 golden blobs in each
-    parse mode: its device-busy time under torch.profiler over the wall time
-    of the same stream without it (the profiler slows the host's launches;
-    and it runs last, since it slows every later launch of the process)."""
-    golden = [bytes(bytearray(blob)) for _ in range(4 * CHUNK)]
-    for mode, dp in (("host", False), ("device", True)):
-        def call():
-            list(M.verify_stream(golden, chunk=CHUNK, cfg=cfg,
-                                 device_parse=dp, device=DEV))
-        walls = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            call()
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
-        wall = statistics.median(walls[1:])
-        prof = busy_share(call)
-        if prof is None:
-            log(f"bytes-to-verdicts stream_{mode}_parse_busy_share: "
-                "not measured (the profiler recorded no device time)")
-            continue
-        pwall, busy_ms, kernels = prof
-        log(f"bytes-to-verdicts stream_{mode}_parse_busy_share: "
-            f"{busy_ms / (wall * 1e3)} ({len(golden)} blobs: wall {wall} s "
-            f"without the profiler ({walls}), device busy {busy_ms} ms and "
-            f"{kernels} device kernels under it, wall {pwall} s there)")
 
 
 # ---------------------------------------------------------------------------
@@ -2636,11 +2447,11 @@ def ntt_mimc_debug_phase(cfg, tree, want, kernels, ops):
     launches of the several-stage kernel at 2^20, no other), against the
     oracle's FFT at 2^13, a round trip and one output point against a Horner
     evaluation on the host at 2^20, one stage-kernel launch a stage against
-    it (equal, timed in turns), and `bench --ntt 13 20` as a subprocess; the
-    MiMC scan through the family's compute_output (counted), against the
-    oracle on 16 inputs with 64 and with 8,192 constants and the known
-    output of input 3, and its times; a STARK_DEBUG=1 pass of the first 16
-    proofs of phase 5, and a violation that raises."""
+    it (equal, timed in turns); the MiMC scan through the family's
+    compute_output (counted), against the oracle on 16 inputs with 64 and
+    with 8,192 constants and the known output of input 3, and its times; a
+    STARK_DEBUG=1 pass of the first 16 proofs of phase 5, and a violation
+    that raises."""
     n = 1 << 20
     rng = np.random.RandomState(20)
     host = rng.randint(0, 1 << 16, (n, 16)).astype(np.int32)
@@ -2675,13 +2486,6 @@ def ntt_mimc_debug_phase(cfg, tree, want, kernels, ops):
         f"several-stage kernel (no other), the round trip exact, point {at} "
         f"equal to its Horner evaluation; 2^13 equal to the oracle's FFT")
     per_stage_vs_passes(ops)
-
-    rec, _ = run_json(["stark_verifier_tpu_torch.bench", "--ntt", "13", "20"],
-                      "bench --ntt 13 20", timeout=600)
-    sizes = (rec or {}).get("sizes", {})
-    if sorted(sizes) != sorted(f"2^{k}" for k in range(13, 21)) or not all(
-            r["ms"] > 0 and r["Melem_per_s"] > 0 for r in sizes.values()):
-        fail(f"bench --ntt 13 20 printed {rec}")
 
     c = limbs_on_card([(i ** 7) ^ 42 for i in range(cfg.num_constants)])
     out, counts = counted(lambda: MimcStatement(cfg).compute_output(
@@ -2844,7 +2648,6 @@ def main():
     times["single_proof_latency_s_median"] = statistics.median(lat[1:])
     times["total_seconds"] = time.perf_counter() - t_start
     log("times: " + json.dumps(times))
-    stream_busy(cfg, blob)
     if "--profile" in sys.argv:
         # last: the profiler slows every later launch of the process
         profile_call(f"main path, batch {BATCH}", lambda: fn(good))

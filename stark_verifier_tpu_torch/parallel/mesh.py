@@ -195,7 +195,9 @@ def launch(n_ranks: int, fn, *args, backend: str | None = None, devices=None,
     init_distributed.  The kernels and the native parser are built here,
     once, before the ranks start.  If a rank raises, exits without a result
     or the world outlasts timeout_s, every rank is killed and this raises
-    with the failing rank's traceback: never a partial result."""
+    with the failing rank's traceback: never a partial result.  A rank that
+    gave its result but has not exited by then is killed too, and the
+    results stand."""
     devs = [_rank_device(r, devices) for r in range(n_ranks)]
     if any(d.type == "cuda" for d in devs):
         _build.load()
@@ -243,8 +245,8 @@ def launch(n_ranks: int, fn, *args, backend: str | None = None, devices=None,
                 raise RuntimeError(
                     f"launch: rank {rank} of {n_ranks} failed:\n{value}")
             got[rank] = value
-        for p in procs:
-            p.join(timeout=60)
+        for p in procs:              # the world's one deadline bounds them all
+            p.join(max(0.0, deadline - time.monotonic()))
     finally:
         for p in procs:
             if p.is_alive():

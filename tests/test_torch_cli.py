@@ -1,9 +1,10 @@
-"""The port's command line (cli.py), bench (bench.py) and metrics
-(profiling.py) on the CPU: exit codes 0 / 1 / 2 on log_steps=9 blobs from
-tests/prover.py, the JSON lines' keys against the JAX package's, the
-compressions count against the JAX package's, and that every entry point
-asked for the card raises where there is none."""
+"""The port's command line (cli.py) and metrics (profiling.py) on the CPU:
+exit codes 0 / 1 / 2 on log_steps=9 blobs from tests/prover.py, the JSON
+lines' keys against the JAX package's, the compressions count against the
+JAX package's, and that every entry point asked for the card raises where
+there is none."""
 
+import functools
 import json
 
 import pytest
@@ -12,8 +13,9 @@ import torch
 import prover
 from stark_verifier_tpu import profiling as jprofiling
 from stark_verifier_tpu.config import StarkConfig as JCfg
-from stark_verifier_tpu_torch import bench, cli, profiling
+from stark_verifier_tpu_torch import cli, profiling
 from stark_verifier_tpu_torch.config import StarkConfig
+from stark_verifier_tpu_torch.parallel import mesh as M
 
 torch.set_num_threads(1)
 CONSTS = [(i ** 7) ^ 42 for i in range(64)]
@@ -75,10 +77,12 @@ def _bench_lines(capsys):
             if line.startswith("{")]
 
 
-def test_bench_devices_runs_gloo_ranks(files, capsys):
+def test_bench_devices_runs_gloo_ranks(files, capsys, monkeypatch):
     """--devices 2 --device cpu: two gloo ranks, one proof each; the report
     counts both, and the scaling line divides its per-rank rate by the
-    reference."""
+    reference.  The world took 4.4 s in a whole suite's run on six workers:
+    it gets 60 s, not the launcher's default for users' worlds."""
+    monkeypatch.setattr(M, "launch", functools.partial(M.launch, timeout_s=60))
     assert cli.main(["bench", str(files["golden"]), *CPU9, "--batch", "2",
                      "--devices", "2", "--iters", "1",
                      "--ref-single-chip", "100"]) == 0
@@ -131,42 +135,6 @@ def test_entry_points_default_to_the_card(files):
                  ["bench", str(files["golden"]), "--log-steps", "9"]):
         with pytest.raises(RuntimeError, match="CUDA"):
             cli.main(argv)
-    with pytest.raises(RuntimeError, match="CUDA"):
-        bench.main([str(files["golden"]), "--log-steps", "9"])
-
-
-def test_bench_module_json_lines(files, capsys, monkeypatch):
-    """Batch mode (latencies off: they are 90 single-proof calls) and stream
-    mode in both parse modes print the JAX bench's keys."""
-    monkeypatch.setenv("STARK_BENCH_LATENCY", "0")
-    bench.main([str(files["golden"]), "2", "1", *CPU9])
-    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert set(rec) == {"metric", "value", "unit", "vs_baseline"}
-    assert rec["unit"] == "proofs/s" and rec["value"] > 0
-    for extra in ([], ["--device-parse"]):
-        bench.main([str(files["golden"]), "--stream", "3", "2", *extra, *CPU9])
-        rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-        assert set(rec) == {"metric", "value", "unit", "vs_baseline",
-                            "n_proofs", "chunk", "device_parse", "wire_MBps",
-                            "device"}
-        assert rec["n_proofs"] == 3 and rec["device_parse"] == bool(extra)
-    with pytest.raises(SystemExit, match="refusing"):
-        bench.main([str(files["flipped"]), "--stream", "2", "2", *CPU9])
-
-
-def test_bench_ntt_mode(capsys):
-    """--ntt LO HI: a line a size, then one JSON line with ms, Melem/s,
-    table seconds and launches a transform for every size; no proof
-    needed, and without --ntt one is."""
-    bench.main(["--ntt", "3", "4", "--device", "cpu"])
-    lines = capsys.readouterr().out.strip().splitlines()
-    rec = json.loads(lines[-1])
-    assert len(lines) == 3 and sorted(rec["sizes"]) == ["2^3", "2^4"]
-    assert all(r["ms"] > 0 and r["Melem_per_s"] > 0 and r["tables_s"] >= 0
-               and r["launches"] == 0 for r in rec["sizes"].values())
-    assert rec["device"] == "cpu" and rec["card"] == "cpu"
-    with pytest.raises(SystemExit):
-        bench.main(["--device", "cpu"])
 
 
 @pytest.mark.parametrize("log_steps", [9, 11, 13])

@@ -37,7 +37,8 @@ def hostlib(tmp_path_factory):
     out = tmp_path_factory.mktemp("csrc_host") / "libstark_host.so"
     subprocess.run(
         [cxx, "-x", "c++", "-std=c++17", "-O2", "-shared", "-fPIC",
-         "-o", str(out), *map(str, _build.sources())], check=True)
+         "-o", str(out), *map(str, _build.sources())], check=True,
+        timeout=60)
     return _build.declare(ctypes.CDLL(str(out)))
 
 

@@ -14,6 +14,7 @@ FRI column, a main branch, a lincomb branch and a spot-checked row; the
 verifier's kernel calls with and without part; the refusals; a rank that
 raises."""
 
+import multiprocessing
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -151,8 +152,11 @@ def _steps(kinds, batch, stream, point, blobs=None, layout=None):
 
 
 def _world(n, steps):
+    """One world of n ranks running `steps`.  Its limit, 90 s, is over four
+    times the 17.6 s the slower world took in a whole suite's run on six
+    workers."""
     t0 = time.time()
-    ranks = M.launch(n, R.run_steps, steps, devices="cpu", timeout_s=300)
+    ranks = M.launch(n, R.run_steps, steps, devices="cpu", timeout_s=90)
     for r in ranks:
         assert t0 <= r["joined"] <= time.time()
     return [[r["steps"][i] for r in ranks] for i in range(len(steps))]
@@ -350,5 +354,21 @@ def test_launch_raises_when_a_rank_fails():
     t0 = time.perf_counter()
     with pytest.raises(RuntimeError,
                        match="rank 1 of 2 failed(.|\n)*on purpose"):
-        M.launch(2, _fail_on_rank_1, devices="cpu", timeout_s=120)
-    assert time.perf_counter() - t0 < 120
+        M.launch(2, _fail_on_rank_1, devices="cpu", timeout_s=60)
+    assert time.perf_counter() - t0 < 60
+
+
+def _sleep(mesh, seconds):
+    time.sleep(seconds)
+
+
+def test_a_rank_that_never_returns_times_out():
+    """Ranks still running at timeout_s: launch raises TimeoutError by that
+    deadline (and the kill after it), not at the ranks' own pace, and no
+    rank process outlives it."""
+    before = set(multiprocessing.active_children())
+    t0 = time.perf_counter()
+    with pytest.raises(TimeoutError, match="did not finish within 5"):
+        M.launch(2, _sleep, 600, devices="cpu", timeout_s=5)
+    assert time.perf_counter() - t0 < 5 + 10
+    assert not set(multiprocessing.active_children()) - before

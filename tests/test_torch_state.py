@@ -148,7 +148,7 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
         "from stark_verifier_tpu_torch.proofio import (device, ingest,\n"
         "    static_layout, wire)\n"
         "from stark_verifier_tpu_torch.protocol import verify\n"
-        "from stark_verifier_tpu_torch import bench, cli, native, profiling\n"
+        "from stark_verifier_tpu_torch import cli, native, profiling\n"
         "from stark_verifier_tpu_torch.parallel import mesh, ntt, rank_checks\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'jaxlib' or m.split('.')[0] == 'stark_verifier_tpu']\n"
@@ -157,8 +157,9 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
         "print('clean')\n")
     import os
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    # 6.1 s in a whole suite's run on six workers
     out = subprocess.run([sys.executable, "-c", code], cwd=root,
-                         capture_output=True, text=True, timeout=300)
+                         capture_output=True, text=True, timeout=60)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "clean"
 
