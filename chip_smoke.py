@@ -60,6 +60,23 @@ the CPU):
                  version; kernel E takes the four boundary products);
                  verify_mimc on a list of blobs; a fresh power-2 proof
                  through SquareStatement;
+ 15. CUDA graphs (run after phase 7) -- a verifier module runs a shape
+                 eagerly, captures it on its second call and replays it from
+                 the third: the 1,024-proof batch of phase 5 through the
+                 shared and the unshared module, the general verifier over
+                 64 statements (each proof's input and claimed output its
+                 own) and single verify_proof_bytes calls, replayed verdicts
+                 equal to the eager ones; an eager and a capturing call
+                 launch what a call of their walk launches, a replay
+                 nothing from Python; two back-to-back replays of different
+                 batches leave the first's verdicts as they were; two
+                 threads replay one module at once, the golden batch on the
+                 default stream and the tampered one on two streams of its
+                 own in turns, each thread's verdicts exact; wall ms of each
+                 case, eager against replay in turns (`graphs {...}` line).
+                 Every launch count of the other phases is read against the
+                 verify calls that ran eagerly or were captured
+                 (protocol/verify.graph_counts);
  14. one constant a round (run after phase 7) -- 2^13 steps with 8,192
                  round constants: a fresh proof, the verifier's set-up, and
                  1,024 proofs (honest, a bit flipped at each protocol site)
@@ -135,6 +152,7 @@ just after.  The last line printed is {"ok": true, "device": {...}}; the line
 before it holds one JSON record per kernel.
 """
 
+import collections
 import json
 import os
 import random
@@ -143,6 +161,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import torch
@@ -828,6 +847,7 @@ def check_hash_recorded(ops, fn, tree, kernels):
         return real(words, nbytes)
 
     blake2s_cuda.hash_words = recording
+    eager_next(fn)
     try:
         fn(dev_io.tree_map(lambda x: x[:CHUNK], tree))
         torch.cuda.synchronize()
@@ -1240,6 +1260,13 @@ def counted(call):
     out = call()
     torch.cuda.synchronize()
     return out, R.launch_counts()
+
+
+def eager_next(fn):
+    """Forget the CUDA graphs of verifier module fn: its next call of each
+    shape runs eagerly (a replay launches nothing from Python, and the
+    wrappers a check records are not called)."""
+    fn.graphs = V._CallGraphs()
 
 
 def require_launches(path, counts, launched, idle=()):
@@ -1723,6 +1750,7 @@ def runtime_statement_path(cfg, blob, tree, want, kernels, consts, out):
                                                "runtime-statement path")
     log(f"runtime-statement path: batch {BATCH}, input, constants and output "
         f"as tensors: verdicts equal the static path's; launches {counts}")
+    eager_next(gfn)
     replay_mul_launches(lambda: gfn(tree, inp_l, consts_l, out_l),
                         counts["mul_mod"], kernels)
     root = cached_tables(cfg).minipoly_root
@@ -1799,6 +1827,162 @@ def runtime_statement_path(cfg, blob, tree, want, kernels, consts, out):
         f"rejects, the cubic verifier rejects both "
         f"({time.perf_counter() - t0:.1f} s)")
     return lambda t: gfn(t, inp_l, consts_l, out_l)
+
+
+def graph_calls(what, fn, args, want, walk, nums, launches=None):
+    """Three calls of verifier module fn on `args` from a forgotten graph
+    cache: eager, capture, replay, each with the verdicts `want`, the first
+    two launching `launches` (by default what a call of `walk` launches),
+    the replay nothing from Python; then wall ms, eager against replay in
+    turns (an untimed capture before each timed replay).  Leaves the
+    shape captured."""
+    launches = launches or WALK_LAUNCHES[walk]
+    eager_next(fn)
+    for how in ("eager", "capture", "replay"):
+        before = V.graph_counts.copy()
+        got, counts = counted(lambda: fn(*args))
+        expect_verdicts(f"graphs: {what}, {how}", got, want)
+        ran = V.graph_counts - before
+        if ran != {(walk, how): 1}:
+            fail(f"graphs: {what}: the {how} call ran as {dict(ran)}")
+        counts = {k: counts[k] for k in launches}
+        expect = launches if how != "replay" else dict.fromkeys(counts, 0)
+        if counts != expect:
+            fail(f"graphs: {what}: the {how} call launched {counts}, "
+                 f"expected {expect}")
+    turns = {"eager": [], "replay": []}
+    for how in ("eager", "replay") * 4:
+        if how == "eager":
+            eager_next(fn)
+        else:
+            fn(*args)          # the capture: the eager turn saw the shape
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fn(*args)
+        torch.cuda.synchronize()
+        turns[how].append(1e3 * (time.perf_counter() - t0))
+        expect_verdicts(f"graphs: {what}, timed", got, want)
+    nums[what] = {k: statistics.median(v) for k, v in turns.items()}
+    nums[what + "_ms"] = turns
+
+
+def graphs_phase(cfg, blob, tree_np, tree, want, consts, out):
+    """Phase 15: replayed verdicts against eager ones (see the module's
+    docstring)."""
+    nums = {"card": nvidia_smi_line()}
+    torch.cuda.reset_peak_memory_stats()
+    for shared in (True, False):
+        fn, _ = V.make_verifier(cfg, 3, shared_merkle=shared, device=DEV)
+        graph_calls(f"batch_{BATCH}_{'shared' if shared else 'unshared'}",
+                    fn, (tree,), want, "shared" if shared else "unshared",
+                    nums)
+
+    # 64 statements, each proof with its own input and claimed output: only
+    # the golden proof's statement (input 3) holds
+    t0 = time.perf_counter()
+    outs = [oracle.mimc(3 + s, cfg.num_steps, consts) for s in range(64)]
+    nums["oracle_outputs_s"] = time.perf_counter() - t0
+    gfn, _ = V.make_general_verifier(cfg, device=DEV)
+    rows = [torch.arange(BATCH) % 64, (torch.arange(BATCH) + 1) % 64]
+    stmt = [(limbs_on_card([3 + int(s) for s in r]),
+             limbs_on_card([outs[int(s)] for s in r])) for r in rows]
+    consts_l = limbs_on_card(consts)
+    wants = [want & (r == 0) for r in rows]
+    # kernel E: the four boundary products of a run-time input; the NTT
+    # kernel: the call's K table
+    graph_calls(f"general_{BATCH}_64_statements", gfn,
+                (tree, stmt[0][0], consts_l, stmt[0][1]), wants[0], "shared",
+                nums, dict(WALK_LAUNCHES["shared"], mul_mod=4, ntt_block=2))
+    # two back-to-back replays of different batches: the first's verdicts,
+    # returned before the second ran, stay as they were
+    first = gfn(tree, stmt[0][0], consts_l, stmt[0][1])
+    second = gfn(tree, stmt[1][0], consts_l, stmt[1][1])
+    torch.cuda.synchronize()
+    expect_verdicts("graphs: the second of two replays", second, wants[1])
+    expect_verdicts("graphs: the first of two replays, after the second",
+                    first, wants[0])
+    fn, _ = V.make_verifier(cfg, 3, device=DEV)
+    good = device_batch(tree_np, BATCH, tamper=False)
+    first, second = fn(tree), fn(good)
+    torch.cuda.synchronize()
+    expect_verdicts("graphs: a replay of the tampered batch, after one of "
+                    "the golden batch", first, want)
+    expect_verdicts("graphs: the golden batch's replay", second,
+                    torch.ones(BATCH, dtype=torch.bool))
+    two_threads(fn, (good, tree), (torch.ones(BATCH, dtype=torch.bool), want))
+
+    # single calls from bytes: the golden blob and a bit flipped at each
+    # protocol site, in turns
+    one_fn, _ = V.make_verifier(cfg, 3, device=DEV)
+    eager_next(one_fn)
+    kinds = {"golden": blob, **site_flips(cfg, blob)}
+    hows, turns = [], {"eager": [], "replay": []}
+    for k, data in list(kinds.items()) * 2:
+        before = V.graph_counts.copy()
+        got = sv.verify_proof_bytes(data, log_steps=LOG_STEPS, device=DEV)
+        (walk, how), = ran = V.graph_counts - before
+        if got is not (k == "golden") or ran[walk, how] != 1:
+            fail(f"graphs: verify_proof_bytes({k}) = {got} ({dict(ran)})")
+        hows.append(how)
+    if hows[:2] != ["eager", "capture"] or set(hows[2:]) != {"replay"}:
+        fail(f"graphs: single calls ran as {hows}")
+    for how in ("eager", "replay") * 6:
+        if how == "eager":
+            eager_next(one_fn)
+        elif not sv.verify_proof_bytes(blob, log_steps=LOG_STEPS,
+                                       device=DEV):  # the capture
+            fail("graphs: a capturing single call rejected the golden proof")
+        t0 = time.perf_counter()
+        if not sv.verify_proof_bytes(blob, log_steps=LOG_STEPS, device=DEV):
+            fail("graphs: a timed single call rejected the golden proof")
+        turns[how].append(1e3 * (time.perf_counter() - t0))
+    nums["verify_proof_bytes"] = {k: statistics.median(v)
+                                  for k, v in turns.items()}
+    nums["verify_proof_bytes_ms"] = turns
+    nums["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+    nums["graph_counts"] = {f"{w}.{how}": n
+                            for (w, how), n in V.graph_counts.items()}
+    log("graphs " + json.dumps(nums))
+    log(f"graphs: replayed verdicts equal the eager ones on the shared and "
+        f"unshared batch of {BATCH}, the general verifier over 64 "
+        f"statements and {len(hows)} single calls; a replay's earlier "
+        f"verdicts survive the next replay; two threads replaying one "
+        f"module at once each get their own verdicts")
+
+
+def two_threads(fn, batches, wants, calls=20):
+    """Two threads call verifier module fn (its shape already captured) at
+    once, `calls` times each: thread 0 on batches[0] on the default stream,
+    thread 1 on batches[1] on two streams of its own in turns.  Every call
+    replays, and each returns its own batch's verdicts."""
+    outs, errors = ([], []), []
+
+    def caller(i):
+        streams = ([torch.cuda.default_stream(DEV)] if i == 0 else
+                   [torch.cuda.Stream(DEV), torch.cuda.Stream(DEV)])
+        try:
+            for c in range(calls):
+                with torch.cuda.stream(streams[c % len(streams)]):
+                    outs[i].append(fn(batches[i]))
+        except Exception as e:          # noqa: BLE001 -- reported below
+            errors.append(repr(e))
+
+    before = V.graph_counts.copy()
+    threads = [threading.Thread(target=caller, args=(i,)) for i in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+    torch.cuda.synchronize()
+    if errors or any(t.is_alive() for t in threads):
+        fail(f"graphs: two threads on one module: {errors or 'hung'}")
+    ran = V.graph_counts - before
+    if ran != {("shared", "replay"): 2 * calls}:
+        fail(f"graphs: two threads on one module ran as {dict(ran)}")
+    for i, got in enumerate(outs):
+        for c, verdicts in enumerate(got):
+            expect_verdicts(f"graphs: thread {i}'s call {c}, two threads on "
+                            f"one module", verdicts, wants[i])
 
 
 def one_constant_a_round_phase():
@@ -2013,9 +2197,10 @@ def add_counts(*parts):
 
 def run_stream(cfg, blobs, device_parse):
     """verify_stream over `blobs` with every launch count set to 0 just
-    before: (verdicts, seconds, counts read at the first verdict of each
-    chunk, counts at the end)."""
+    before: (verdicts, seconds, (counts, verify calls so far) read at the
+    first verdict of each chunk, counts at the end, the verify calls)."""
     R.reset_counts()
+    start = V.graph_counts.copy()
     verdicts, snaps = [], []
     t0 = time.perf_counter()
     for i, v in M.verify_stream(blobs, chunk=CHUNK, cfg=cfg,
@@ -2023,32 +2208,48 @@ def run_stream(cfg, blobs, device_parse):
         if i != len(verdicts):
             fail(f"verify_stream yielded index {i} out of order")
         if i % CHUNK == 0:
-            snaps.append(R.launch_counts())
+            snaps.append((R.launch_counts(), V.graph_counts - start))
         verdicts.append(v)
     seconds = time.perf_counter() - t0
-    return verdicts, seconds, snaps, R.launch_counts()
+    return (verdicts, seconds, snaps, R.launch_counts(),
+            V.graph_counts - start)
 
 
-def check_stream_launches(mode, kinds, names, device_parse, snaps, final):
+def walk_of(launches):
+    return "unshared" if launches.get("walk_branches") else "shared"
+
+
+def check_stream_launches(mode, kinds, names, device_parse, snaps, final,
+                          calls):
     """The pipeline dispatches chunk j + 1 and then fetches chunk j (its
-    reroute runs then) before chunk j's first verdict: so the counts read
-    there grew by chunk j + 1's dispatch and chunk j's reroute (and, before
-    the first, chunk 0's dispatch)."""
+    reroute runs then) before chunk j's first verdict: so between the
+    counts read there and the counts read before, the verify calls were
+    chunk j + 1's dispatch and chunk j's reroute (and, before the first,
+    chunk 0's dispatch), each on the walk its tree selects, and the
+    launches grew by those of the calls that ran eagerly or were captured
+    (a replay launches nothing from Python).  Returns the expected calls a
+    chunk and how many of the calls replayed."""
     exp = expected_chunk_launches(kinds, names, device_parse)
-    prev = {k: 0 for k in WALK_LAUNCHES["shared"]}
-    for j, snap in enumerate(snaps):
+    prev, at = {k: 0 for k in WALK_LAUNCHES["shared"]}, collections.Counter()
+    for j, (snap, upto) in enumerate(snaps):
         parts = [exp[j][1]] + ([exp[j + 1][0]] if j + 1 < len(exp) else [])
         if j == 0:
             parts.append(exp[0][0])
-        want = add_counts({k: 0 for k in prev}, *parts)
+        made, at = list((upto - at).elements()), upto
+        if sorted(w for w, _ in made) != sorted(walk_of(p) for p in parts
+                                                if p):
+            fail(f"stream ({mode}): verify calls before chunk {j}'s "
+                 f"verdicts {made}, expected the walks of {parts}")
+        want = add_counts({k: 0 for k in prev}, *(
+            WALK_LAUNCHES[w] for w, how in made if how != "replay"))
         got = {k: snap[k] - prev[k] for k in prev}
         if got != want:
             fail(f"stream ({mode}): launches before chunk {j}'s verdicts "
-                 f"{got}, expected {want}")
+                 f"{got}, expected {want} (calls {made})")
         prev = snap
-    if final != snaps[-1]:
+    if final != snaps[-1][0] or calls != snaps[-1][1]:
         fail(f"stream ({mode}): launches after the last chunk began")
-    return exp
+    return exp, sum(n for (_, how), n in calls.items() if how == "replay")
 
 
 def h2d_gbps(host, reps=5):
@@ -2115,19 +2316,21 @@ def stream_phase(cfg, blob, tree_np, consts, out):
     want = [kinds[k][1] for k in names]
     results = {}
     for mode, dp in (("host parse", False), ("device parse", True)):
-        verdicts, secs, snaps, final = run_stream(cfg, blobs, dp)
+        verdicts, secs, snaps, final, calls = run_stream(cfg, blobs, dp)
         if verdicts != want:
             bad = [i for i, (g, w) in enumerate(zip(verdicts, want)) if g != w]
             fail(f"stream ({mode}): wrong verdicts at {bad[:20]} "
                  f"(kinds {[names[i] for i in bad[:5]]})")
-        exp = check_stream_launches(mode, kinds, names, dp, snaps, final)
+        exp, replays = check_stream_launches(mode, kinds, names, dp, snaps,
+                                             final, calls)
         walks = [("unshared" if e[0].get("walk_branches") else "shared")
                  if e[0] else "none" for e in exp]
         results[mode] = verdicts
         log(f"stream ({mode}): {STREAM_BLOBS} distinct blobs of "
             f"{len(kinds)} kinds in chunks of {CHUNK}: verdicts equal the "
             f"oracle's ({sum(want)} accept); chunks' walks {walks}, "
-            f"reroutes {[bool(e[1]) for e in exp]}; launches {final}; "
+            f"reroutes {[bool(e[1]) for e in exp]}; launches {final}, "
+            f"{replays} of {calls.total()} verify calls replayed; "
             f"{STREAM_BLOBS / secs:.1f} blobs/s")
         nums[f"mixed_stream_{'device' if dp else 'host'}_parse_blobs_per_s"] = \
             STREAM_BLOBS / secs
@@ -2215,18 +2418,35 @@ def run_world(what, n, steps, **kw):
     return [r["steps"] for r in ranks], startup
 
 
-def rank_results(what, ranks, i, want, kernels, idle=()):
-    """Step i of every rank: its result must equal `want`, and the rank must
-    have launched each kernel of `kernels` and none of `idle`."""
+def rank_results(what, ranks, i, want, kernels, idle=(), walk="shared"):
+    """Step i of every rank: its result must equal `want`, and where a
+    verify call of the step on `walk` ran eagerly or was captured, the rank
+    must have launched each kernel of `kernels` and none of `idle`; where
+    only calls on the other walk did, each kernel that walk launches; where
+    every call replayed a graph, none of them (a replay launches nothing
+    from Python)."""
     for rank, steps in enumerate(ranks):
         got = steps[i]["result"]
         if got != want:
             fail(f"ranks [{what}]: rank {rank} got {str(got)[:300]}, "
                  f"expected {str(want)[:300]}")
-        require_launches(f"{what} (rank {rank})", steps[i]["launches"],
-                         kernels, idle)
+        calls = steps[i]["calls"]
+        live = {w for w, how in calls if how != "replay"}
+        if not calls:
+            fail(f"ranks [{what}]: rank {rank} made no verify call")
+        if walk in live:
+            require_launches(f"{what} (rank {rank})", steps[i]["launches"],
+                             kernels, idle)
+        elif live:
+            require_launches(f"{what} (rank {rank})", steps[i]["launches"],
+                             {k for w in live
+                              for k, n in WALK_LAUNCHES[w].items() if n})
+        else:
+            require_launches(f"{what} (rank {rank})", steps[i]["launches"],
+                             (), tuple(kernels) + tuple(idle))
     log(f"ranks [{what}]: every rank exact; launches by rank "
-        f"{[steps[i]['launches'] for steps in ranks]}")
+        f"{[steps[i]['launches'] for steps in ranks]}; verify calls by "
+        f"rank {[dict(steps[i]['calls']) for steps in ranks]}")
 
 
 def sharded_ntt_results(what, ranks, i, nums, kernels):
@@ -2315,7 +2535,8 @@ def rank_phase(cfg, blob, want, kinds, names, kernels):
     if point_want != [True, False, False, False]:
         fail(f"the oracle's verdicts on the point kinds: {point_want}")
     rank_results("gloo x 2: point parallelism", ranks, 4, point_want,
-                 POINT_KERNELS, idle=("walk_leaf_levels", "walk_quads"))
+                 POINT_KERNELS, idle=("walk_leaf_levels", "walk_quads"),
+                 walk="unshared")
     sharded_ntt_results("gloo_x_2", ranks, 7, nums, kernels)
 
     # (c) the numbers, each rank's seconds between barriers
@@ -2599,6 +2820,7 @@ def main():
     fn_u = unshared_path(cfg, blob, tree_np, tree, want, kernels, consts, out)
     general = runtime_statement_path(cfg, blob, tree, want, kernels, consts,
                                      out)
+    graphs_phase(cfg, blob, tree_np, tree, want, consts, out)
     one_constant_a_round_phase()
     strict_phase(cfg, blob, tree_np)
     kinds, names = stream_phase(cfg, blob, tree_np, consts, out)

@@ -103,21 +103,25 @@ def _transform_root(root: int, inverse: bool, modulus: int) -> int:
     return pow(root, modulus - 2, modulus) if inverse else root
 
 
-@functools.lru_cache(maxsize=8)
+@functools.cache
 def _card_tables(w: int, n: int, modulus: int, device: str):
     """(bit-reverse permutation [n] int32, the powers w^0 .. w^(n/2 - 1)
     packed [n/2, 8] int32) on `device`: what the kernels read.  At
     n = 2^20 that is 4 MB and 16 MB a (root, direction, device); every stage
-    reads its twiddles from the one power table at a stride."""
+    reads its twiddles from the one power table at a stride.  Kept for the
+    process's life (a handful of transforms a process): a CUDA graph that
+    captured a transform replays from these tables."""
     perm = torch.from_numpy(_bitrev_perm(n).astype(np.int32)).to(device)
     tw = torch.from_numpy(_words(_powers(w, n, modulus)).copy()).to(device)
     return perm, tw
 
 
-@functools.lru_cache(maxsize=8)
+@functools.cache
 def _scale_words(n: int, modulus: int, device: str) -> torch.Tensor:
-    """n^-1 packed [8] on `device` (cached: a transform copies nothing to
-    the card, so that its launches can be captured in a CUDA graph)."""
+    """n^-1 packed [8] on `device` (cached for the process's life, as
+    _card_tables: a transform copies nothing to the card, so that its
+    launches can be captured in a CUDA graph, which then replays from
+    it)."""
     return torch.from_numpy(
         _words([pow(n, modulus - 2, modulus)]).copy()).reshape(8).to(device)
 

@@ -54,7 +54,10 @@ def indices_from_entries(entries: torch.Tensor, count: int, modulus,
     real_modulus = m*(e-1)/e, remapped to skip multiples of e
     (utils.rs:79-91).  modulus: python int or an integer tensor broadcastable
     against [..., count]."""
-    m = torch.as_tensor(modulus, device=entries.device).to(torch.int64)
+    # a host int stays one: a tensor made of it would be a copy to the card,
+    # which a CUDA graph cannot capture
+    m = modulus.to(torch.int64) if isinstance(modulus, torch.Tensor) \
+        else int(modulus)
     if exclude_multiples_of is not None:
         e = exclude_multiples_of
         real_modulus = (m // e) * (e - 1)

@@ -9,7 +9,9 @@ and not in a script's __main__.
 runs the steps on every rank in order.  A step function takes the rank's
 Mesh first and returns something picklable; run_steps records, a step each,
 its result, the rank's own kernel launches by name during it (every count
-set to 0 just before, read just after) and its seconds.  Proofs cross to
+set to 0 just before, read just after), its verify calls by walk and by
+how they ran (a replayed CUDA graph launches nothing from Python) and its
+seconds.  Proofs cross to
 the ranks as a few distinct blobs by kind (`kinds`, {name: bytes}) and a
 list of kind names, so that a batch of thousands of full-width proofs costs
 a few megabytes to send; each rank parses a kind once.
@@ -61,17 +63,20 @@ def reset_counts() -> None:
 
 def run_steps(mesh: M.Mesh, steps) -> dict:
     """Run [(fn, kwargs), ...] in order: {"joined": the wall clock when this
-    rank had joined its world, "steps": [{"result", "launches", "seconds"}
-    a step]}."""
+    rank had joined its world, "steps": [{"result", "launches", "calls",
+    "seconds"} a step]}, `calls` the step's verify calls as
+    protocol/verify.graph_counts counts them, by (walk, how they ran)."""
     joined = time.time()
     out = []
     for fn, kwargs in steps:
         _sync(mesh)
         reset_counts()
+        calls = V.graph_counts.copy()
         t0 = time.perf_counter()
         result = fn(mesh, **kwargs)
         _sync(mesh)
         out.append({"result": result, "launches": launch_counts(),
+                    "calls": V.graph_counts - calls,
                     "seconds": time.perf_counter() - t0})
     return {"joined": joined, "steps": out}
 

@@ -34,15 +34,28 @@ uniform-depth guard, never misverify.
 With STARK_DEBUG=1 (debug.py) the FRI column indices and the spot-check
 positions are bounds-checked before kernels C and D take them, and the
 verifiers the makers return synchronize the device after each call.
+
+A verifier module replays its calls on the card from CUDA graphs, one for
+each shape of its inputs (_CallGraphs): a call of a shape seen before
+launches its ~1,800 glue kernels and the hand-written ones as one graph.
+No op of a call reads the device back or copies from the host, so the
+whole call captures; the module keeps the boundary interpolant's host
+constants for that.  Several threads may call one module: a lock orders
+the graphs' lookups, captures and replays, and a replay runs on the
+graph's own stream, after the work the caller queued before it.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import functools
+import threading
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from .. import debug, fp
 from ..config import StarkConfig, StatementTables, cached_tables
@@ -297,7 +310,10 @@ def verify_mimc_proof(tree, inp, output_limbs, tables, cfg: StarkConfig,
     table (runtime_k_words) takes the place of the statement's.  The
     modulus stays fixed (the limb reduction is specialized to p).  tables:
     StatementTables or a verifier module (whose buffers are used as they
-    are).  Returns [...] bool verdicts.
+    are).  Returns [...] bool verdicts.  With a verifier module as `tables`
+    and its own input, the call goes through the module's CUDA graphs
+    (_CallGraphs); the `verify` span says how it ran (`graph`: eager,
+    capture or replay) and graph_counts counts it by walk.
 
     part=(rank, world): the tree holds only the rank's share of the FRI
     queries (and their rows), of the main and lincomb branches and of the
@@ -318,15 +334,72 @@ def verify_mimc_proof(tree, inp, output_limbs, tables, cfg: StarkConfig,
             sp.set(proofs=tree["merkle_root"][..., 0].numel(),
                    shared_merkle=shared_merkle, runtime=runtime)
             hashed = sum(blake2s_cuda.launches.values())
-        ok = _verify_mimc(tree, inp, output_limbs, tables, cfg,
-                          constants_limbs, shared_merkle, part)
+        call = functools.partial(_verify_mimc, tables=tables, cfg=cfg,
+                                 shared_merkle=shared_merkle, part=part)
+        args = (tree, inp, output_limbs, constants_limbs)
+        if _module_boundary(tables, inp) is None:
+            ok, how, graph = call(*args), "eager", None
+        else:
+            ok, how, graph = tables.graphs(call, args,
+                                           (cfg, shared_merkle), part)
+        with _counts_lock:
+            graph_counts["shared" if shared_merkle else "unshared", how] += 1
         if sp:
-            sp.set(hash_launches=sum(blake2s_cuda.launches.values()) - hashed)
+            sp.set(graph=how, hash_launches=graph.hash_launches
+                   if how == "replay"
+                   else sum(blake2s_cuda.launches.values()) - hashed)
         return ok
 
 
-def _verify_mimc(tree, inp, output_limbs, tables, cfg: StarkConfig,
-                 constants_limbs, shared_merkle: bool, part):
+def boundary_ints(last: int, inp, modulus: int) -> list:
+    """The host constants of the boundary interpolant I(x) = i_c1 x + i_c0
+    through (1, inp) and (last, output) (main.rs:183-187, utils.rs:246-274):
+    [inv_e e0, p - 1], which scale the output, then for a host int inp its
+    folded terms [-last iy0, iy0], for run-time limbs (inp None) the factors
+    [inv_e e1, -last]."""
+    m = modulus
+    e0, e1 = (1 - last) % m, (last - 1) % m
+    inv_e = pow(e0 * e1 % m, m - 2, m)
+    if inp is None:
+        tail = [inv_e * e1 % m, (-last) % m]
+    else:
+        iy0 = inp % m * inv_e % m * e1 % m
+        tail = [(-last * iy0) % m, iy0]
+    return [inv_e * e0 % m, m - 1] + tail
+
+
+def _host_inp(inp):
+    """The statement-static input, or None for run-time limbs."""
+    return inp if isinstance(inp, int) else None
+
+
+def _module_boundary(tables, inp):
+    """The verifier module's boundary constants [4, 16] where `tables` is a
+    module made for this input, else None."""
+    if isinstance(tables, _FamilyVerifier) and \
+            tables.boundary_inp == _host_inp(inp):
+        return tables.boundary
+    return None
+
+
+def interpolant(inp, output_limbs, bnd):
+    """(i_c0, i_c1) canonical limbs of the boundary interpolant from the
+    claimed output, the input (host int or limbs) and boundary_ints as limbs
+    [4, 16]; the device part only where the output (and a run-time input)
+    enters."""
+    iy1 = F.mul_mod(output_limbs, bnd[0])                  # [..., 16]
+    neg_iy1 = F.mul_mod(bnd[1], iy1)
+    if isinstance(inp, int):
+        # statement-static input: iy0 and its -last*iy0 term fold to host
+        return F.add_mod(bnd[2], neg_iy1), F.add_mod(bnd[3], iy1)
+    # runtime input (the reference's library boundary, lib.rs:99): the same
+    # algebra on the device
+    iy0 = F.mul_mod(inp, bnd[2])                           # [..., 16]
+    return F.add_mod(F.mul_mod(iy0, bnd[3]), neg_iy1), F.add_mod(iy0, iy1)
+
+
+def _verify_mimc(tree, inp, output_limbs, constants_limbs, tables,
+                 cfg: StarkConfig, shared_merkle: bool, part):
     """verify_mimc_proof's checks, a span for each phase."""
     m = cfg.modulus
     dev = tree["merkle_root"].device
@@ -406,29 +479,14 @@ def _verify_mimc(tree, inp, output_limbs, tables, cfg: StarkConfig,
             spot_tables = spot_tables._replace(
                 k=runtime_k_words(constants_limbs, tables))
 
-    # boundary interpolant I(x) coefficients (main.rs:183-187): I(x)
-    # interpolates (1, inp), (last, output); host-constant scaffolding, device
-    # part only where the output enters (utils.rs:246-274)
+    # boundary interpolant I(x) coefficients (main.rs:183-187): the
+    # module's constants, or this call's from the host
     with span("verify.boundary"):
-        last = tables.last_step_position
-        e0 = (1 - last) % m
-        e1 = (last - 1) % m
-        inv_e = pow(e0 * e1 % m, m - 2, m)
-        iy1 = F.mul_mod(output_limbs,
-                        F.const(inv_e * e0 % m, dev))      # [..., 16]
-        neg_iy1 = F.mul_mod(F.const(m - 1, dev), iy1)
-        if isinstance(inp, int):
-            # statement-static input: iy0 and its -last*iy0 term fold to host
-            iy0 = inp % m * inv_e % m * e1 % m             # host scalar
-            i_c0 = F.add_mod(F.const((-last * iy0) % m, dev), neg_iy1)
-            i_c1 = F.add_mod(F.const(iy0, dev), iy1)
-        else:
-            # runtime input (the reference's library boundary, lib.rs:99):
-            # the same algebra on the device
-            iy0 = F.mul_mod(inp, F.const(inv_e * e1 % m, dev))  # [..., 16]
-            i_c0 = F.add_mod(F.mul_mod(iy0, F.const((-last) % m, dev)),
-                             neg_iy1)
-            i_c1 = F.add_mod(iy0, iy1)
+        bnd = _module_boundary(tables, inp)
+        if bnd is None:
+            bnd = to_tensor(fp.ints_to_limbs(boundary_ints(
+                tables.last_step_position, _host_inp(inp), m)), dev)
+        i_c0, i_c1 = interpolant(inp, output_limbs, bnd)
 
     # the three constraint families (main.rs:179-192) in one kernel, each
     # right-hand side one multi-term accumulation compared against the
@@ -450,6 +508,114 @@ def _verify_mimc(tree, inp, output_limbs, tables, cfg: StarkConfig,
     return ok
 
 
+# calls of verify_mimc_proof by (walk, how they ran): the walk "shared" or
+# "unshared", how as the `verify` span's `graph` says it (eager, capture or
+# replay)
+graph_counts = collections.Counter()
+_counts_lock = threading.Lock()
+
+# input shapes a verifier module keeps a graph for, least recently used out
+GRAPH_KEYS = 4
+
+
+def _on_card(tree) -> bool:
+    return tree["merkle_root"].is_cuda
+
+
+class _Graph:
+    """One verify call captured in a CUDA graph: the static copies of its
+    tensor inputs that the graph reads, the verdicts it writes, and the
+    stream it is captured and replayed on."""
+
+    def __init__(self, fn, leaves: list, spec):
+        self.inputs = [x.clone(memory_format=torch.contiguous_format)
+                       for x in leaves if isinstance(x, torch.Tensor)]
+        it = iter(self.inputs)
+        args = tree_unflatten([next(it) if isinstance(x, torch.Tensor) else x
+                               for x in leaves], spec)
+        hashed = sum(blake2s_cuda.launches.values())
+        self.out = self._capture(fn, args)
+        # what a replay launches of the hash kernel, as graph nodes
+        self.hash_launches = sum(blake2s_cuda.launches.values()) - hashed
+
+    def _capture(self, fn, args):
+        dev = self.inputs[0].device
+        self.graph = torch.cuda.CUDAGraph()
+        self.stream = torch.cuda.Stream(dev)
+        # thread_local: the stream's worker thread may wait on an event or
+        # pin host memory while this thread captures
+        with torch.cuda.device(dev), torch.cuda.graph(
+                self.graph, stream=self.stream,
+                capture_error_mode="thread_local"):
+            return fn(*args)
+
+    def _replay(self) -> None:
+        self.graph.replay()
+
+    @contextlib.contextmanager
+    def _on_stream(self):
+        """Run the block on the graph's stream, after the work queued so
+        far on the caller's stream and before the work queued there
+        later."""
+        with torch.cuda.device(self.stream.device):
+            caller = torch.cuda.current_stream()
+            self.stream.wait_stream(caller)
+            with torch.cuda.stream(self.stream):
+                yield
+            caller.wait_stream(self.stream)
+
+    def __call__(self, tensors: list) -> torch.Tensor:
+        """The verdicts of the call on `tensors` (the inputs' tensors in
+        order): a copy into the static inputs, the replay and a copy of the
+        verdicts, which the next replay would overwrite, all on the graph's
+        stream, so that the next replay waits for them whatever stream its
+        caller is on."""
+        out = torch.empty_like(self.out)
+        with self._on_stream():
+            torch._foreach_copy_(self.inputs, tensors)
+            self._replay()
+            out.copy_(self.out)
+        return out
+
+
+class _CallGraphs:
+    """The CUDA graphs of a verifier module's calls, by the shapes and
+    dtypes of their inputs.  A call runs eagerly off the card, with `part`,
+    under STARK_DEBUG (its checks read the device) and the first time its
+    shapes are seen; the second time it is captured, and from then on
+    replayed, so a shape seen once never pays for a capture.  GRAPH_KEYS
+    shapes are kept, least recently used out.  The graphs' static inputs
+    and verdicts are shared by every caller of the module, so one lock
+    orders the lookups, the captures and the replays of all threads."""
+
+    def __init__(self):
+        self._keys = collections.OrderedDict()   # key -> None, then _Graph
+        self._lock = threading.Lock()
+
+    def __call__(self, fn, args: tuple, static, part=None) -> tuple:
+        """(fn(*args), how it ran, the graph or None); `static`: what else
+        the call is specialized to (hashable)."""
+        if part is not None or debug.enabled() or not _on_card(args[0]):
+            return fn(*args), "eager", None
+        leaves, spec = tree_flatten(args)
+        key = (static, spec, tuple(
+            (x.shape, x.dtype, x.device) if isinstance(x, torch.Tensor)
+            else x for x in leaves))
+        with self._lock:
+            if key in self._keys:
+                self._keys.move_to_end(key)
+                graph, how = self._keys[key], "replay"
+                if graph is None:
+                    graph = self._keys[key] = _Graph(fn, leaves, spec)
+                    how = "capture"
+                return graph([x for x in leaves
+                              if isinstance(x, torch.Tensor)]), how, graph
+            self._keys[key] = None
+            if len(self._keys) > GRAPH_KEYS:
+                self._keys.popitem(last=False)
+        return fn(*args), "eager", None
+
+
 class _FamilyVerifier(nn.Module):
     """What the verifiers of one statement family share.
 
@@ -459,11 +625,15 @@ class _FamilyVerifier(nn.Module):
     g2_words, z_words, z2_words, k_words; level_moduli and points_pts as
     int64), so they are copied to the device once and move with .to(); the
     host constants (quartic_ginv, inv4, last_step_position, k_period,
-    k_root, minipoly_root) are plain attributes.
+    k_root, minipoly_root) are plain attributes.  So are the boundary
+    interpolant's constants for the module's input (boundary_ints as limbs
+    [4, 16], for `boundary_inp`: a host int, or None for run-time limbs),
+    so that a call copies nothing from the host and can be captured in a
+    CUDA graph (`graphs`).
     """
 
     def __init__(self, cfg: StarkConfig, tables: StatementTables,
-                 shared_merkle: bool):
+                 shared_merkle: bool, inp: int | None = None):
         super().__init__()
         if not cfg.sanity_ok():
             raise ValueError("statement fails reference sanity checks")
@@ -489,6 +659,12 @@ class _FamilyVerifier(nn.Module):
         self.k_period = tables.k_period
         self.k_root = tables.k_root
         self.minipoly_root = tables.minipoly_root
+        self.boundary_inp = inp
+        self.register_buffer(
+            "boundary", to_tensor(fp.ints_to_limbs(boundary_ints(
+                tables.last_step_position, inp, cfg.modulus)), "cpu"),
+            persistent=False)
+        self.graphs = _CallGraphs()
 
     def _check_device(self, tree) -> None:
         dev = self.g2_powers.device
@@ -509,7 +685,7 @@ class MimcVerifier(_FamilyVerifier):
 
     def __init__(self, cfg: StarkConfig, inp: int, tables: StatementTables,
                  shared_merkle: bool = True, chunk: int | None = None):
-        super().__init__(cfg, tables, shared_merkle)
+        super().__init__(cfg, tables, shared_merkle, inp)
         self.inp = inp
         self.chunk = chunk
         self.mimc_output = mimc_ops.mimc_host(

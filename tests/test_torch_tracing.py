@@ -86,6 +86,12 @@ def _named(spans, name):
 def test_no_profiler_no_spans(attrs):
     assert not torch.autograd.profiler._is_profiler_enabled
     before = len(profiling.spans())
+    # fill the interpreter's free list of small dicts' key tables before
+    # tracing starts: how full it is depends on what ran before in the
+    # process, and a call with keywords parks one more traced table there
+    # until it is full
+    tables = [{"k": i} for i in range(200)]
+    del tables
     tracemalloc.start()
     try:
         with profiling.span("x", **attrs) as sp:
@@ -146,7 +152,7 @@ def test_stream_spans_nest_by_layer_and_name_their_chunk(traced):
         assert kids[1].attrs == {}            # no device buffers here
         assert kids[2].attrs == {"proofs": d.attrs["proofs"],
                                  "shared_merkle": True, "runtime": False,
-                                 "hash_launches": 0}
+                                 "graph": "eager", "hash_launches": 0}
         assert {k.name for k in _children(spans, kids[2])} == VERIFY_PHASES
 
     collects = _named(spans, "stream.collect")
@@ -228,6 +234,20 @@ def test_the_verify_span_counts_the_hash_kernels_launches(traced, pb,
     verify, = (s for s in profiling.spans()
                if s.name == "verify" and s.start_ns >= since)
     assert verify.attrs["hash_launches"] == 8
+
+
+def test_the_verify_span_says_how_the_call_ran(pb):
+    """A call on the CPU runs eagerly, however often its shape repeats:
+    the span reads graph=eager, and graph_counts counts the call there."""
+    before = V.graph_counts.copy()
+    since = time.time_ns()
+    with profile(activities=[ProfilerActivity.CPU]):
+        for _ in range(3):
+            assert svt.verify_proof_bytes(pb, log_steps=9, device="cpu")
+    verifies = [s for s in profiling.spans()
+                if s.name == "verify" and s.start_ns >= since]
+    assert [s.attrs["graph"] for s in verifies] == ["eager"] * 3
+    assert V.graph_counts - before == {("shared", "eager"): 3}
 
 
 def test_spans_lie_on_the_profilers_clock(traced):
