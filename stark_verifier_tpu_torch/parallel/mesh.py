@@ -50,7 +50,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from .. import _build, native
+from .. import _build, fp, native
 from ..config import StarkConfig
 from ..profiling import NO_SPAN, span
 from ..proofio import device as pdevice
@@ -500,6 +500,7 @@ class _Slot:
     def __init__(self):
         self.layout = None       # host parse: ingest.BatchLayout
         self.pack = None         # device parse: [chunk, words] int32
+        self.statements = None   # run-time statements: ingest.StatementRows
         self.dev = None          # device buffers (same tree as the host's)
         self.copied = None       # event after the last H2D copy out of it
         self.used = None         # event after the last verify that read dev
@@ -554,7 +555,8 @@ def verify_stream(proof_blobs, chunk: int | None = None,
                   cfg: StarkConfig | None = None, inp: int = 3,
                   manifest: dict | None = None, threads: int = 4,
                   device_parse: bool = False, device=None,
-                  mesh: Mesh | None = None):
+                  mesh: Mesh | None = None, statements=None,
+                  constants=None):
     """Chunked verification of an arbitrarily large proof stream.
 
     proof_blobs: iterable of serialized proof byte strings.  Chunks of
@@ -589,7 +591,30 @@ def verify_stream(proof_blobs, chunk: int | None = None,
     whose part holds a ragged proof takes the independent walk while the
     others keep the shared one (the verdicts are the same either way).
     Every rank must pass the same manifest.
+
+    With `statements` and `constants` the statement is given at run time,
+    as the reference's library boundary takes it (src/lib.rs:99):
+    `statements` runs in step with `proof_blobs`, one (input, claimed
+    output) pair of ints a proof, `constants` are the stream's round
+    constants (ints, cfg.num_constants of them), and `inp` is ignored.  The
+    worker packs each chunk's statements as limbs beside its tree
+    (ingest.StatementRows: each distinct statement converted once), the copy
+    stream carries them, and the chunk runs through
+    protocol.verify.make_general_verifier.  Not with device_parse or a mesh
+    (ValueError).
     """
+    runtime = statements is not None or constants is not None
+    if runtime:
+        if statements is None or constants is None:
+            raise ValueError("run-time statements need both statements= "
+                             "and constants=")
+        if device_parse:
+            raise ValueError("run-time statements take the host parse: "
+                             "device_parse=True is not supported with "
+                             "statements=")
+        if mesh is not None:
+            raise ValueError("run-time statements run on one device: mesh= "
+                             "is not supported with statements=")
     dev = mesh.device if mesh is not None else pdevice.resolve_device(device)
     vcfg = cfg or StarkConfig()
     if mesh is None:
@@ -603,6 +628,13 @@ def verify_stream(proof_blobs, chunk: int | None = None,
     slots = [_Slot(), _Slot()]       # double buffer, by chunk parity
     fb = _Slot()                     # the device-parse reroute's own
     lay = SL.canonical_layout(vcfg) if device_parse else None
+    if runtime:
+        constants = [int(c) % fp.MODULUS for c in constants]
+        if len(constants) != vcfg.num_constants:
+            raise ValueError(f"{len(constants)} round constants, the "
+                             f"family takes {vcfg.num_constants}")
+        consts = pdevice.to_tensor(fp.ints_to_limbs(constants), dev)
+        limbs = {}                   # (inp, out) -> limbs, both slots'
 
     def host_tree(slot, blobs, pad_to=None):
         tree, ok, slot.layout = ingest.ingest_chunk(
@@ -610,11 +642,18 @@ def verify_stream(proof_blobs, chunk: int | None = None,
             pin=on_card)
         return tree, ok
 
-    def verify_tree(slot, tree, n, sp=NO_SPAN):
+    def verify_tree(slot, tree, n, sp=NO_SPAN, stmts=None):
         rect = pdevice.is_rectangular(pdevice.tree_map(lambda t: t[:n], tree))
         sp.set(walk="shared" if rect else "independent")
-        fn, _ = V.make_verifier(vcfg, inp, shared_merkle=rect, device=dev)
-        verdicts = fn(slot.stage(tree, n, dev, copy_stream))
+        if stmts is None:
+            fn, _ = V.make_verifier(vcfg, inp, shared_merkle=rect, device=dev)
+            verdicts = fn(slot.stage(tree, n, dev, copy_stream))
+        else:
+            fn, _ = V.make_general_verifier(vcfg, shared_merkle=rect,
+                                            device=dev)
+            d = slot.stage(dict(tree, statements=stmts), n, dev, copy_stream)
+            st = d.pop("statements")
+            verdicts = fn(d, st["inp"], consts, st["out"])
         slot.release(dev)
         return verdicts
 
@@ -627,7 +666,7 @@ def verify_stream(proof_blobs, chunk: int | None = None,
             return np.zeros(len(blobs), dtype=bool)
         return verify_tree(fb, tree, len(blobs)).cpu().numpy() & ok
 
-    def prepare(cid, slot, blobs):
+    def prepare(cid, slot, blobs, stmts):
         """Worker thread: fill the slot's host buffers for a chunk."""
         if not blobs:                          # a rank's empty part
             return None
@@ -635,7 +674,15 @@ def verify_stream(proof_blobs, chunk: int | None = None,
             with span("stream.wait_slot"):
                 slot.wait_copied()
             if not device_parse:
-                return host_tree(slot, blobs, pad_to=rows)
+                tree, ok = host_tree(slot, blobs, pad_to=rows)
+                if not runtime or tree is None:
+                    return tree, ok, None
+                with span("stream.statements", proofs=len(blobs)) as sp:
+                    if slot.statements is None:
+                        slot.statements = ingest.StatementRows(rows, limbs,
+                                                               pin=on_card)
+                    sp.set(statements=slot.statements.fill(stmts))
+                return tree, ok, slot.statements.tensors
             with span("stream.pack"):
                 if slot.pack is None:
                     slot.pack = torch.zeros((rows, lay.words),
@@ -655,11 +702,11 @@ def verify_stream(proof_blobs, chunk: int | None = None,
             if n == 0:
                 return ("done", cid, idxs, lo, np.zeros(0, dtype=bool))
             if not device_parse:
-                tree, ok = prepared
+                tree, ok, stmts = prepared
                 if tree is None:                   # nothing parseable
                     return ("done", cid, idxs, lo, np.zeros(n, dtype=bool))
                 return ("host", cid, idxs, lo, ok,
-                        verify_tree(slot, tree, n, sp))
+                        verify_tree(slot, tree, n, sp, stmts))
             sp.set(walk="shared")
             fn, _ = SL.make_blob_verifier(vcfg, inp, device=dev)
             verdicts, shape_ok = fn(slot.stage(slot.pack, n, dev,
@@ -703,15 +750,18 @@ def verify_stream(proof_blobs, chunk: int | None = None,
             return list(zip(p_idxs, (bool(v) for v in verdicts)))
 
     def chunks():
-        buf, idxs, cid = [], [], 0
-        for gi, blob in enumerate(proof_blobs):
+        buf, sts, idxs, cid = [], [], [], 0
+        pairs = (zip(proof_blobs, statements, strict=True) if runtime
+                 else ((b, None) for b in proof_blobs))
+        for gi, (blob, st) in enumerate(pairs):
             buf.append(bytes(blob))
+            sts.append(st)
             idxs.append(gi)
             if len(buf) == chunk:
-                yield cid, idxs, buf
-                buf, idxs, cid = [], [], cid + 1
+                yield cid, idxs, buf, sts
+                buf, sts, idxs, cid = [], [], [], cid + 1
         if buf:
-            yield cid, idxs, buf
+            yield cid, idxs, buf, sts
 
     prep = None                      # chunk being prepared on the worker
     pending = None                   # chunk dispatched, verdicts not fetched
@@ -730,7 +780,7 @@ def verify_stream(proof_blobs, chunk: int | None = None,
         return out
 
     with ThreadPoolExecutor(max_workers=1) as worker:
-        for cid, idxs, blobs in chunks():
+        for cid, idxs, blobs, sts in chunks():
             if manifest is not None and cid in manifest:
                 yield from zip(idxs, manifest[cid])
                 continue
@@ -741,7 +791,7 @@ def verify_stream(proof_blobs, chunk: int | None = None,
                 yield from advance()
             lo, hi = (0, len(blobs)) if mesh is None else \
                 part_bounds(len(blobs), mesh)
-            fut = worker.submit(prepare, cid, slot, blobs[lo:hi])
+            fut = worker.submit(prepare, cid, slot, blobs[lo:hi], sts[lo:hi])
             if prep is not None:
                 yield from advance()             # overlaps the worker
             prep = (cid, idxs, lo, blobs[lo:hi], slot, fut)

@@ -34,6 +34,7 @@ import torch
 
 from . import device as pdevice
 from . import wire
+from .. import fp
 from ..profiling import span
 
 
@@ -429,6 +430,37 @@ def _expand_layout(old: BatchLayout, extra_trees: list,
                 src[keep]
         pdevice.tree_map(mig, new.tree, old.tree)
     return new
+
+
+class StatementRows:
+    """A chunk's run-time statements as limbs, row for row beside its
+    batch tree: `tensors` is {"inp": [rows, 16], "out": [rows, 16]} int32
+    (pinned with pin=True), allocated once and refilled a chunk at a time.
+    `limbs` holds each distinct (input, claimed output) converted once,
+    mod p as verify_mimc takes them; a stream shares it between its
+    slots."""
+
+    MAX_KEPT = 1 << 16     # distinct statements converted before a reset
+
+    def __init__(self, rows: int, limbs: dict, pin: bool = False):
+        self.tensors = {k: torch.zeros((rows, fp.NLIMBS), dtype=torch.int32,
+                                       pin_memory=pin)
+                        for k in ("inp", "out")}
+        self.limbs = limbs
+
+    def fill(self, statements: list) -> int:
+        """Write rows [:len(statements)]; returns how many distinct
+        statements they hold."""
+        keys = [(int(a), int(b)) for a, b in statements]
+        distinct = set(keys)
+        if len(self.limbs) > self.MAX_KEPT:
+            self.limbs.clear()
+        for k in distinct - self.limbs.keys():
+            self.limbs[k] = fp.ints_to_limbs([x % fp.MODULUS for x in k])
+        both = np.stack([self.limbs[k] for k in keys])        # [n, 2, 16]
+        _words(self.tensors["inp"])[:len(keys)] = both[:, 0]
+        _words(self.tensors["out"])[:len(keys)] = both[:, 1]
+        return len(distinct)
 
 
 def ingest_chunk_plain(blobs: list, cfg, pad_to: int | None = None):
